@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Smoke test of khmer_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. device: requires torch.cuda; prints the card's name and power limit;
+  2. build: compiles the CUDA kernels (nvcc, sm_90a) and the native
+     loader (g++) from the sources in the checkout;
+  3. kernels: every kernel of the main path against its plain PyTorch
+     version on the card, from the seed, at the main path's shapes;
+     exact equality (all outputs are integers); CUDA-event times;
+  4. main path: load-into-counting (-k 20 -N 4 -x 1e8) then
+     abundance-dist-single and abundance-dist on synthetic 100-bp reads
+     at 20x over a random 3.2 Mbase genome (bench.py's input), through
+     the port's script entry points.  Held against (a) the same run
+     through the plain versions on the card (.ct sha256, n_unique and
+     histograms identical) and (b) an exact numpy count of the
+     canonical k-mers (n_unique and the histogram total within the
+     collision bound of the table sizes).  Every kernel must have been
+     launched by this run.
+The last lines are the kernels JSON and {"ok": true, "device": ...}.
+"""
+
+import argparse
+import gc
+import hashlib
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from unittest import mock
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+K = 20
+KS = (1, 16, 20, 31, 32)
+TABLE_SIZE = 1e8  # bins per table; 4 tables (bench.py's countgraph)
+SOURCES = {
+    "hash2bit_canonical": ("khmer_tpu_torch/kernels/csrc/hash2bit.cu",
+                           "khmer_tpu/ops/hashing.py:247"),
+    "sketch_update": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
+                      "khmer_tpu/ops/sketch_ops.py:128"),
+    "sketch_get": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
+                   "khmer_tpu/ops/sketch_ops.py:223"),
+    "abund_hist": ("khmer_tpu_torch/kernels/csrc/abund.cu",
+                   "khmer_tpu/hashtable.py:415"),
+    "bin_scatter_add": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
+                        "benchmarks/explore_pallas_scatter.py:59"),
+}
+
+
+def fail(msg):
+    print("FAIL: " + msg, file=sys.stderr)
+    sys.exit(1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps, inner=5, warmup=1):
+    """Device time of one call of fn: the median over reps groups of
+    `inner` back-to-back calls, each group between two CUDA events made
+    beforehand (so the host enqueues ahead of the card)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) / inner for a, b in pairs)
+
+
+def max_abs_err(a, b):
+    """0 for identical integer tensors, else the largest difference."""
+    import torch
+
+    if a.shape == b.shape and torch.equal(a, b):
+        return 0
+    if a.shape != b.shape:
+        return float("inf")
+    bad = torch.nonzero(a != b).squeeze(1)[:4096].cpu()
+    x = a.cpu()[bad].tolist()
+    y = b.cpu()[bad].tolist()
+    return float(max(abs(int(u) - int(v)) for u, v in zip(x, y)))
+
+
+def bound_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
+                  scatter_bins=100_000_003, scatter_lanes=1 << 24):
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.hashtable import CHUNK
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.ops.sketch_ops import (BIGCOUNT_LANES, SketchSpec,
+                                                alloc_claim, alloc_table)
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rec = {}
+
+    def record(name, err, ms, plain_ms, nbytes, library_ms=None):
+        rec[name] = dict(match=err == 0, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms,
+                         bound_ms=bound_ms(nbytes), bound_by="bytes",
+                         library_ms=library_ms)
+        log("kernel {:20s} max_abs_err={} ms={:.4f} plain_ms={:.4f} "
+            "bound_ms={:.4f} library_ms={}".format(
+                name, err, ms, plain_ms, bound_ms(nbytes), library_ms))
+        if err != 0:
+            fail("{} disagrees with its plain version".format(name))
+
+    # K1 on one main-path chunk (hashtable.CHUNK bases) at every edge-case k
+    n = CHUNK
+    log("phase 3: K1 and K4 on {}-base chunks, K2 and K3 on {}-lane "
+        "batches".format(n, lanes))
+    codes = torch.randint(0, 4, (n,), generator=g, device=dev,
+                          dtype=torch.uint8)
+    mask = (torch.rand(n, generator=g, device=dev) < 0.95).to(torch.uint8)
+    err = 0
+    for k in KS:
+        h, w = kernels.hash2bit_canonical(codes, mask, k)
+        ph, pw = plain.hash2bit_canonical(codes, mask, k)
+        err = max(err, max_abs_err(h, ph), max_abs_err(w, pw))
+        if k == K:
+            chunk_h, chunk_w = h, w
+    record("hash2bit_canonical", err,
+           cuda_ms(lambda: kernels.hash2bit_canonical(codes, mask, K), 20),
+           cuda_ms(lambda: plain.hash2bit_canonical(codes, mask, K), 3),
+           n * (1 + 1 + 8 + 4))
+
+    # K2 on a pre-filled 4 x 1e8 sketch with a 2**23-lane batch full of
+    # duplicates (about 8 lanes per distinct hash) and masked lanes
+    spec = SketchSpec("byte", tuple(get_n_primes_near_x(4, table_size)))
+    sizes, offsets = spec.geometry(dev)
+    T = spec.n_tables
+    table = alloc_table(spec, dev)
+    fill = torch.randint(0, spec.total_bins, (spec.total_bins // 10,),
+                         generator=g, device=dev)
+    table[fill] = torch.randint(1, 250, fill.shape, generator=g, device=dev,
+                                dtype=torch.int32)
+    del fill
+    n_distinct = lanes // 8
+    hi, lo = torch.randint(0, 1 << 32, (2, n_distinct), generator=g,
+                           device=dev, dtype=torch.int64)
+    hashes = ((hi << 32) | lo)[torch.randint(0, n_distinct, (lanes,),
+                                            generator=g, device=dev)]
+    del hi, lo
+    weights = (torch.rand(lanes, generator=g, device=dev) < 0.9).to(
+        torch.int32)
+    claim = alloc_claim(spec, dev)
+    outs = {}
+    for side, fn in (("kernel", kernels.sketch_update),
+                     ("plain", plain.sketch_update)):
+        t = table.clone()
+        nu = torch.zeros(1, dtype=torch.int64, device=dev)
+        cand = torch.zeros(BIGCOUNT_LANES, dtype=torch.int64, device=dev)
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        is_new = fn(t, claim, hashes, weights, sizes, offsets, nu, cand, cnt)
+        c = int(cnt.item())
+        if c > BIGCOUNT_LANES or c == 0:
+            fail("K2 check: {} candidate lanes, expected 1..{}".format(
+                c, BIGCOUNT_LANES))
+        outs[side] = (t, nu, is_new, cnt, torch.sort(cand[:c]).values)
+        if not bool((claim == plain.CLAIM_FREE).all()):
+            fail("sketch_update left claims behind")
+    err = max(max_abs_err(a, b) for a, b in zip(outs["kernel"],
+                                                 outs["plain"]))
+    post = outs["kernel"][0]
+    del outs
+    # table traffic: the bins of each distinct live hash, read and written
+    live = weights != 0
+    n_live = int(live.sum())
+    distinct_live = int(torch.unique(hashes[live]).numel())
+    del live
+
+    def k2(fn):
+        nu = torch.zeros(1, dtype=torch.int64, device=dev)
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        cand = torch.empty(BIGCOUNT_LANES, dtype=torch.int64, device=dev)
+        return lambda: fn(table, claim, hashes, weights, sizes, offsets, nu,
+                          cand, cnt)
+
+    record("sketch_update", err, cuda_ms(k2(kernels.sketch_update), 5),
+           cuda_ms(k2(plain.sketch_update), 2),
+           lanes * (4 + 1) + n_live * 8 + distinct_live * T * (4 + 4))
+    del table
+
+    # K3 under each read cap, on the updated sketch
+    err = 0
+    for cap in (255, 65535, 1):
+        err = max(err, max_abs_err(
+            kernels.sketch_get(post, hashes, sizes, offsets, cap),
+            plain.sketch_get(post, hashes, sizes, offsets, cap)))
+    distinct = int(torch.unique(hashes).numel())
+    bins = plain._bins(hashes, sizes, offsets)
+    library = cuda_ms(lambda: torch.amin(post[bins], dim=0), 5)
+    del bins
+    record("sketch_get", err,
+           cuda_ms(lambda: kernels.sketch_get(post, hashes, sizes, offsets,
+                                              65535), 10),
+           cuda_ms(lambda: plain.sketch_get(post, hashes, sizes, offsets,
+                                            65535), 3),
+           lanes * (8 + 2) + distinct * 4 * T, library)
+
+    # K4 on one chunk's sorted live hashes against the updated sketch
+    keys = torch.sort(chunk_h[chunk_w != 0]).values
+    n_distinct = int(torch.unique_consecutive(keys).numel())
+    hk = torch.zeros(65536, dtype=torch.int64, device=dev)
+    hp = torch.zeros_like(hk)
+    kernels.abund_hist(keys, post, sizes, offsets, 65535, hk)
+    plain.abund_hist(keys, post, sizes, offsets, 65535, hp)
+    record("abund_hist", max_abs_err(hk, hp),
+           cuda_ms(lambda: kernels.abund_hist(keys, post, sizes, offsets,
+                                              65535, hk), 10),
+           cuda_ms(lambda: plain.abund_hist(keys, post, sizes, offsets,
+                                            65535, hp), 3),
+           keys.numel() * 8 + n_distinct * 4 * T + 65536 * 8 * 2)
+    del post, claim, hashes, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bin_scatter_add at the Pallas prototype's own shape: B bins, N
+    # sorted unique bins, values in [1, 5)
+    B, N = scatter_bins, scatter_lanes
+    idx = torch.sort(torch.randperm(B, generator=g, device=dev)[:N]).values
+    vals = torch.randint(1, 5, (N,), generator=g, device=dev,
+                         dtype=torch.int32)
+    tk = torch.zeros(B, dtype=torch.int32, device=dev)
+    tp = torch.zeros_like(tk)
+    kernels.bin_scatter_add(tk, idx, vals)
+    plain.bin_scatter_add(tp, idx, vals)
+    record("bin_scatter_add", max_abs_err(tk, tp),
+           cuda_ms(lambda: kernels.bin_scatter_add(tk, idx, vals), 10),
+           cuda_ms(lambda: plain.bin_scatter_add(tp, idx, vals), 10),
+           N * (8 + 4 + 4 + 4),
+           cuda_ms(lambda: tp.index_add_(0, idx, vals), 10))
+    del idx, vals, tk, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at full size
+# ---------------------------------------------------------------------------
+
+
+def make_reads(path, seed, genome_mb=3.2, coverage=20, readlen=100):
+    """bench.py's synthetic read set (20x over a random genome), from the
+    seed; returns the reads as a [R, readlen] array of ASCII bases."""
+    rng = np.random.default_rng(seed)
+    G = int(genome_mb * 1e6)
+    genome = rng.integers(0, 4, G, dtype=np.uint8)
+    n_reads = G * coverage // readlen
+    starts = rng.integers(0, G - readlen, n_reads)
+    seqs = np.frombuffer(b"ACGT", np.uint8)[
+        genome[starts[:, None] + np.arange(readlen)]]
+    rec = np.empty((n_reads, 1 + 8 + 1 + readlen + 1), np.uint8)
+    rec[:, 0] = ord(">")
+    ids = np.arange(n_reads, dtype=np.int64)
+    pows = 10 ** np.arange(7, -1, -1, dtype=np.int64)
+    rec[:, 1:9] = (ids[:, None] // pows) % 10 + ord("0")
+    rec[:, 9] = ord("\n")
+    rec[:, 10:10 + readlen] = seqs
+    rec[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(rec.tobytes())
+    return seqs
+
+
+def exact_kmers(seqs, k):
+    """Distinct canonical k-mers and their counts, exactly, in numpy."""
+    lut = np.zeros(256, np.uint64)
+    for ch, code in ((b"A", 0), (b"T", 1), (b"C", 2), (b"G", 3)):
+        lut[ch[0]] = code
+    codes = lut[seqs]
+    w = seqs.shape[1] - k + 1
+    f = np.zeros((seqs.shape[0], w), np.uint64)
+    r = np.zeros_like(f)
+    for j in range(k):
+        c = codes[:, j:j + w]
+        f = (f << np.uint64(2)) | c
+        r |= (c ^ np.uint64(1)) << np.uint64(2 * j)
+    return np.unique(np.minimum(f, r).ravel(), return_counts=True)
+
+
+def run_scripts(workdir, fa, dev):
+    """load-into-counting, abundance-dist-single and abundance-dist on
+    the card through the port's script entry points."""
+    import torch
+
+    from khmer_tpu_torch.scripts import (abundance_dist,
+                                         abundance_dist_single,
+                                         load_into_counting)
+
+    os.makedirs(workdir)
+    ct = os.path.join(workdir, "reads.ct")
+    table = ["-k", str(K), "-N", "4", "-x", repr(TABLE_SIZE)]
+    walls = {}
+    for name, fn, argv in (
+            ("load-into-counting", load_into_counting.main,
+             ["-q"] + table + [ct, fa]),
+            ("abundance-dist-single", abundance_dist_single.main,
+             ["-q"] + table + [fa, os.path.join(workdir, "single.hist")]),
+            ("abundance-dist", abundance_dist.main,
+             ["-q", ct, fa, os.path.join(workdir, "dist.hist")])):
+        t0 = time.perf_counter()
+        fn(argv, device=dev)
+        sync(dev)
+        walls[name] = time.perf_counter() - t0
+        gc.collect()
+    out = {"walls": walls}
+    with open(ct, "rb") as f:
+        out["ct_sha256"] = hashlib.sha256(f.read()).hexdigest()
+    with open(ct + ".info") as f:
+        out["n_unique"] = int([ln for ln in f if ln.startswith(
+            "Total number of unique k-mers:")][0].split(":")[1])
+    for h in ("single.hist", "dist.hist"):
+        with open(os.path.join(workdir, h), "rb") as f:
+            out[h] = f.read()
+    return out
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def main_path(seed, card, dev, tmp, genome_mb=3.2):
+    from khmer_tpu_torch import Countgraph, Nodegraph, kernels
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+
+    fa = os.path.join(tmp, "reads.fa")
+    t0 = time.perf_counter()
+    seqs = make_reads(fa, seed, genome_mb)
+    n_bases = seqs.size
+    n_kmers = seqs.shape[0] * (seqs.shape[1] - K + 1)
+    log("reads: {} x {} bp, {} bases, {} k-mers, {:.1f} s to write".format(
+        seqs.shape[0], seqs.shape[1], n_bases, n_kmers,
+        time.perf_counter() - t0))
+
+    kernels.reset_launches()
+    got = run_scripts(os.path.join(tmp, "kernels"), fa, dev)
+    launches = dict(kernels.LAUNCHES)
+    log("main path launches: {}".format(json.dumps(launches)))
+    log("main path walls (s): {} [{}]".format(json.dumps(got["walls"]),
+                                              card))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail("kernels not launched by the main path: {}".format(missing))
+
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = run_scripts(os.path.join(tmp, "plain"), fa, dev)
+    log("plain-version walls (s): {} [{}]".format(json.dumps(ref["walls"]),
+                                                  card))
+    for key in ("ct_sha256", "n_unique", "single.hist", "dist.hist"):
+        if got[key] != ref[key]:
+            fail("main path differs from its plain run in " + key)
+    log("kernels == plain on the card: .ct sha256 {}, n_unique {}, "
+        "histograms identical".format(got["ct_sha256"], got["n_unique"]))
+
+    t0 = time.perf_counter()
+    uniq, counts = exact_kmers(seqs, K)
+    distinct = int(uniq.size)
+    hist_total = sum(int(line.split(b",")[1]) for line in
+                     got["dist.hist"].splitlines()[1:])
+    occ = 1.0 - math.exp(-distinct / min(get_n_primes_near_x(4, TABLE_SIZE)))
+    expected = distinct * occ ** 4
+    bound = int(math.ceil(10 * expected)) + 10
+    log("exact numpy count: {} distinct canonical k-mers ({:.1f} s); "
+        "n_unique {}; histogram total {}; collision bound {} (expected "
+        "{:.2f} colliding k-mers over 4 tables of ~{:.0e} bins)"
+        .format(distinct, time.perf_counter() - t0, got["n_unique"],
+                hist_total, bound, expected, TABLE_SIZE))
+    for name, v in (("n_unique", got["n_unique"]),
+                    ("histogram total", hist_total)):
+        if not 0 <= distinct - v <= bound:
+            fail("{} {} is not within {} below the exact {}".format(
+                name, v, bound, distinct))
+    if int(counts.sum()) != n_kmers:
+        fail("exact count lost k-mers")
+
+    # consume and histogram passes timed on their own
+    cg = Countgraph(K, TABLE_SIZE, 4, device=dev)
+    cg.set_use_bigcount(True)
+    sync(dev)
+    t0 = time.perf_counter()
+    cg.consume_seqfile(fa)
+    nu = cg.n_unique_kmers()
+    t_consume = time.perf_counter() - t0
+    tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    cg.abundance_distribution(fa, tracking)
+    t_hist = time.perf_counter() - t0
+    if nu != got["n_unique"]:
+        fail("timed consume gave another n_unique")
+    for name, secs in (("consume", t_consume), ("histogram", t_hist)):
+        log("{}: {:.3f} s, {:.2f} Mbases/s, {:.2f} M k-mers/s [{}]".format(
+            name, secs, n_bases / secs / 1e6, n_kmers / secs / 1e6, card))
+    ct = os.path.join(tmp, "timed.ct")
+    sync(dev)
+    t0 = time.perf_counter()
+    cg.save(ct)
+    t_save = time.perf_counter() - t0
+    del cg, tracking
+    sync(dev)
+    t0 = time.perf_counter()
+    Countgraph.load(ct, device=dev)
+    sync(dev)
+    log("save: {:.3f} s, load: {:.3f} s ({} byte .ct) [{}]".format(
+        t_save, time.perf_counter() - t0, os.path.getsize(ct), card))
+    if dev.type == "cuda":
+        cg = Countgraph(K, TABLE_SIZE, 4, device=dev)
+        device_share("consume", lambda: cg.consume_seqfile(fa), card)
+        tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
+        device_share("histogram",
+                     lambda: cg.abundance_distribution(fa, tracking), card)
+    return launches
+
+
+def device_share(name, fn, card):
+    """Run fn once under torch.profiler and print the device's busy time
+    (CUDA kernels and copies, summed) against the wall clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy = sum(by_name.values()) / 1e6
+    if not by_name:
+        log("profile {}: wall {:.3f} s; device time not measured (the "
+            "profiler saw no CUDA events)".format(name, wall))
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("profile {}: wall {:.3f} s (profiled), device busy {:.3f} s = "
+        "{:.1f}% of the wall, idle {:.1f}% [{}]; by name (ms): {}".format(
+            name, wall, busy, 100 * busy / wall, 100 - 100 * busy / wall,
+            card, "; ".join("{} {:.2f}".format(n[:48], us / 1e3)
+                            for n, us in top)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=42)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke test runs on the card")
+
+    from khmer_tpu_torch.kernels import _build
+    from khmer_tpu_torch.native import get_lib
+
+    card = card_line()
+    log("card: " + card)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.function("khmer_sketch_get")
+    get_lib()
+    log("build: {:.1f} s (nvcc for {} sources in parallel, g++ loader)"
+        .format(time.perf_counter() - t0, len(_build.SOURCES)))
+
+    rec = check_kernels(args.seed, dev)
+    with tempfile.TemporaryDirectory(prefix="khmer_smoke_") as tmp:
+        launches = main_path(args.seed, card, dev, tmp)
+
+    from khmer_tpu_torch.kernels import KERNELS_PER_CALL
+
+    # launches counts kernels launched; ms is per wrapper call, which
+    # launches kernels_per_call kernels
+    kernels_line = []
+    for name, (source, replaces) in SOURCES.items():
+        kernels_line.append(dict(name=name, route="cuda", source=source,
+                                 replaces=replaces,
+                                 launches=launches[name],
+                                 kernels_per_call=KERNELS_PER_CALL[name],
+                                 **rec[name]))
+    print(card)
+    print(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""khmer_tpu_torch: the PyTorch/CUDA port of khmer_tpu for NVIDIA Hopper.
+
+It sits beside the JAX package and is held against it bit for bit; it
+imports nothing of it.  Tables live on a CUDA device unless the caller
+passes ``device="cpu"``, where every kernel runs as its plain PyTorch
+version (khmer_tpu_torch/kernels/plain.py).
+
+This slice covers load-into-counting and abundance-dist(-single):
+Countgraph and Nodegraph over the exact 2-bit hash.
+"""
+
+from collections import namedtuple
+from struct import unpack
+import sys
+
+from khmer_tpu_torch._version import __version__
+from khmer_tpu_torch.graph import Countgraph, Nodegraph
+from khmer_tpu_torch.io.oxli_format import FILETYPES
+
+__all__ = ["Countgraph", "Nodegraph", "__version__",
+           "calc_expected_collisions", "extract_countgraph_info"]
+
+_buckets_per_byte = {
+    # parity with reference khmer/__init__.py:86-93
+    'countgraph': 1,
+    'smallcountgraph': 2,
+    'nodegraph': 8,
+}
+
+
+def extract_countgraph_info(filename):
+    """Header peek for a countgraph file (khmer/__init__.py:135-179)."""
+    CgInfo = namedtuple("CgInfo", ['ksize', 'n_tables', 'table_size',
+                                   'use_bigcount', 'version', 'ht_type',
+                                   'n_occupied'])
+    try:
+        with open(filename, 'rb') as f:
+            signature, = unpack('4s', f.read(4))
+            version, = unpack('B', f.read(1))
+            ht_type, = unpack('B', f.read(1))
+            if ht_type != FILETYPES['SMALLCOUNT']:
+                use_bigcount, = unpack('B', f.read(1))
+            else:
+                use_bigcount = None
+            ksize, = unpack('I', f.read(4))
+            n_tables, = unpack('B', f.read(1))
+            occupied, = unpack('Q', f.read(8))
+            table_size, = unpack('Q', f.read(8))
+        if signature != b'OXLI':
+            raise ValueError(
+                "Count graph file '{}' is missing file type "
+                "signature. ".format(filename) + str(signature))
+    except ValueError:
+        raise
+    except Exception:
+        raise ValueError(
+            "Count graph file '{}' is corrupt ".format(filename))
+
+    return CgInfo(ksize, n_tables, round(table_size, -2), use_bigcount,
+                  version, ht_type, occupied)
+
+
+def calc_expected_collisions(graph, force=False, max_false_pos=.2):
+    """FP-rate estimate + guard (khmer/__init__.py:182-216)."""
+    sizes = graph.hashsizes()
+    n_ht = float(len(sizes))
+    occupancy = float(graph.n_occupied())
+    min_size = min(sizes)
+
+    fp_one = occupancy / min_size
+    fp_all = fp_one ** n_ht
+
+    if fp_all > max_false_pos:
+        print("**", file=sys.stderr)
+        print("** ERROR: the graph structure is too small for ",
+              file=sys.stderr)
+        print("** this data set.  Increase data structure size",
+              file=sys.stderr)
+        print("** with --max_memory_usage/-M.", file=sys.stderr)
+        print("**", file=sys.stderr)
+        print("** Do not use these results!!", file=sys.stderr)
+        print("**", file=sys.stderr)
+        print("** (estimated false positive rate of %.3f;" % fp_all,
+              file=sys.stderr, end=' ')
+        print("max recommended %.3f)" % max_false_pos, file=sys.stderr)
+        print("**", file=sys.stderr)
+
+        if not force:
+            sys.exit(1)
+
+    return fp_all

@@ -1,0 +1,42 @@
+"""Carry sketch state from host arrays into the port.
+
+A khmer_tpu table (``np.asarray(cg.storage.table)``, a uint32 array of
+sum(tablesizes) + 1 bins) together with its counters becomes a port
+table that answers every query the same way.
+"""
+
+import numpy as np
+import torch
+
+from khmer_tpu_torch.graph import Countgraph
+from khmer_tpu_torch.storage import BitStorage, ByteStorage
+
+
+def storage_from_numpy(kind, tablesizes, bins_u32, n_unique=0,
+                       bigcount_candidates=(), bigcounts=None,
+                       device=None):
+    """A 'byte' or 'bit' Storage holding the given uint32 bins."""
+    cls = {"byte": ByteStorage, "bit": BitStorage}[kind]
+    st = cls(tablesizes, device=device)
+    bins = np.array(bins_u32, np.uint32)
+    if bins.shape != (st.spec.total_bins + 1,):
+        raise ValueError("expected {} bins, got {}".format(
+            st.spec.total_bins + 1, bins.shape))
+    st.table = torch.from_numpy(bins.view(np.int32)).to(st.device)
+    st._n_unique.fill_(int(n_unique))
+    st.bigcount_candidates = set(int(h) for h in bigcount_candidates)
+    st.bigcounts = dict(bigcounts or {})
+    return st
+
+
+def countgraph_from_numpy(ksize, tablesizes, bins_u32, n_unique=0,
+                          bigcount_candidates=(), bigcounts=None,
+                          use_bigcount=False, device=None):
+    """A Countgraph over the given uint32 bins; use_bigcount as
+    khmer_tpu's graph has it (``cg.get_use_bigcount()``)."""
+    cg = Countgraph.__new__(Countgraph)
+    cg._ksize = int(ksize)
+    cg.storage = storage_from_numpy("byte", tablesizes, bins_u32, n_unique,
+                                    bigcount_candidates, bigcounts, device)
+    cg.set_use_bigcount(use_bigcount)
+    return cg

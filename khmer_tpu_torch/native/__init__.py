@@ -1,0 +1,124 @@
+"""Native (C++) FASTA/FASTQ chunk loader.
+
+A copy of khmer_tpu's loader (fastx_loader.cc): it parses, cleans,
+2-bit-encodes and chunk-batches reads with the exact semantics of the
+Python _FlatBatcher (hashtable.py).  It is compiled with g++ at first
+use into khmer_tpu_torch/_build/ and bound with ctypes; a failed build
+raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from khmer_tpu_torch._version import __version__
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "fastx_loader.cc")
+_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _build(so):
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp.%d" % (so, os.getpid())
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC,
+           '-DKHMER_TPU_VERSION="%s"' % __version__,
+           "-lz", "-l:libbz2.so.1", "-o", tmp]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("building the native loader failed:\n" +
+                               proc.stderr)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def get_lib():
+    """The loaded native library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            with open(_SRC, "rb") as f:
+                digest = hashlib.sha256(f.read() + __version__.encode())
+            so = os.path.join(_BUILD_DIR, "libkhmer_io-%s.so"
+                              % digest.hexdigest()[:16])
+            if not os.path.exists(so):
+                _build(so)
+            lib = ctypes.CDLL(so)
+            lib.kio_open.restype = ctypes.c_void_p
+            lib.kio_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.c_long]
+            lib.kio_next_chunk.restype = ctypes.c_long
+            lib.kio_next_chunk.argtypes = [ctypes.c_void_p,
+                                           ctypes.c_void_p,
+                                           ctypes.c_void_p]
+            lib.kio_stats.restype = None
+            lib.kio_stats.argtypes = [ctypes.c_void_p] + \
+                [ctypes.POINTER(ctypes.c_uint64)] * 3
+            lib.kio_close.restype = None
+            lib.kio_close.argtypes = [ctypes.c_void_p]
+            _lib = lib
+    return _lib
+
+
+class NativeChunkReader:
+    """Stream (codes, mask) uint8 chunks of a sequence file.
+
+    Produces exactly the chunks the Python _FlatBatcher would for the
+    cleaned 2-bit code stream of the file (FASTA/FASTQ, plain, gzip or
+    bzip2); the final chunk is cut to its filled length."""
+
+    def __init__(self, filename, k, chunk):
+        self._lib = get_lib()
+        self.chunk = chunk
+        self._h = self._lib.kio_open(os.fsencode(filename), int(k),
+                                     int(chunk))
+        if not self._h:
+            raise OSError("file '{}' could not be opened".format(filename))
+
+    def __iter__(self):
+        lib = self._lib
+        chunk = self.chunk
+        while True:
+            data = np.empty(chunk, np.uint8)
+            mask = np.empty(chunk, np.uint8)
+            n = lib.kio_next_chunk(
+                self._h,
+                data.ctypes.data_as(ctypes.c_void_p),
+                mask.ctypes.data_as(ctypes.c_void_p))
+            if n == -2:
+                raise ValueError("invalid FASTA/FASTQ input")
+            if n == -1:
+                return
+            yield data[:n], mask[:n]
+            if n < chunk:
+                return
+
+    def stats(self):
+        """(n_reads, n_consumed_kmers, n_bases) so far."""
+        a = ctypes.c_uint64()
+        b = ctypes.c_uint64()
+        c = ctypes.c_uint64()
+        self._lib.kio_stats(self._h, ctypes.byref(a), ctypes.byref(b),
+                            ctypes.byref(c))
+        return a.value, b.value, c.value
+
+    def close(self):
+        if self._h:
+            self._lib.kio_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

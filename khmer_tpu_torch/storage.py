@@ -1,0 +1,206 @@
+"""Storage layer: device-resident sketches with khmer Storage semantics.
+
+Port of khmer_tpu/storage.py:42-347 (ByteStorage and BitStorage).  Each
+storage is ONE flat uint32 working array on its device, updated by
+kernel K2 per batch; each kind's saturation cap is applied at read
+time, which equals the reference's saturating increments (see
+ops/sketch_ops.py).
+
+bigcount: counts past 255 need no side structure at runtime (the
+uint32 total is simply capped at 65535 on reads).  The OXLI file
+format's sparse bigcount section is reconstructed at save time from a
+host-side set of candidate hashes whose table-0 bin crossed 255; a
+bigcount map loaded *from* a file overlays saturated reads exactly as
+the reference does (storage.hh:631-653).
+"""
+
+import numpy as np
+import torch
+
+from khmer_tpu_torch import _u64
+from khmer_tpu_torch._config import MAX_BIGCOUNT, MAX_KCOUNT, resolve_device
+from khmer_tpu_torch.ops.sketch_ops import (
+    BIGCOUNT_CAP,
+    SketchSpec,
+    alloc_claim,
+    alloc_table,
+    occupied_bins,
+    pack_oxli_bytes,
+    sketch_get,
+    sketch_update,
+    unpack_oxli_bytes,
+)
+
+
+class Storage:
+    """Base class for device sketches."""
+
+    kind = None
+    supports_bigcount = False
+
+    def __init__(self, tablesizes, use_bigcount=False, device=None):
+        tablesizes = tuple(int(t) for t in tablesizes)
+        if not tablesizes:
+            raise ValueError(
+                "tablesizes needs to be one or more numbers")
+        self.device = resolve_device(device)
+        self._use_bigcount = bool(use_bigcount) and self.supports_bigcount
+        self.spec = SketchSpec(kind=self.kind, tablesizes=tablesizes)
+        self.table = alloc_table(self.spec, self.device)
+        self._geom = self.spec.geometry(self.device)
+        self._claim = None   # K2's scratch, allocated at the first add
+        self._n_unique = torch.zeros(1, dtype=torch.int64,
+                                     device=self.device)
+        self._loaded_occupied = None
+        # hashes that may exceed 255 (superset; resolved at save time)
+        self.bigcount_candidates = set()
+        # bigcount map loaded from an OXLI file (overlays capped reads)
+        self.bigcounts = {}
+
+    # -- geometry ---------------------------------------------------------
+
+    def get_tablesizes(self):
+        return list(self.spec.tablesizes)
+
+    def n_occupied(self):
+        if self._loaded_occupied is not None:
+            return self._loaded_occupied
+        return occupied_bins(self.spec, self.table)
+
+    def n_unique_kmers(self):
+        return int(self._n_unique.item())
+
+    # -- bigcount ---------------------------------------------------------
+
+    def set_use_bigcount(self, b):
+        if b and not self.supports_bigcount:
+            raise ValueError("bigcount is not supported for this storage type")
+        self._use_bigcount = bool(b)
+
+    def get_use_bigcount(self):
+        return self._use_bigcount
+
+    def read_cap(self):
+        """Read cap under the current bigcount toggle: 65535 or 255 for
+        counts, 1 for presence (reference MAX_KCOUNT, oxli.hh:81)."""
+        if self.kind == "byte":
+            return BIGCOUNT_CAP if self._use_bigcount else MAX_KCOUNT
+        return 1
+
+    def _counts_over_kcount(self, hashes):
+        """The hashes (int64 tensor) whose uncapped count exceeds 255."""
+        counts = sketch_get(self._geom, self.table, hashes, BIGCOUNT_CAP)
+        return _u64.to_numpy(hashes[counts.to(torch.int32) > MAX_KCOUNT])
+
+    def resolved_bigcounts(self):
+        """Exact {hash: count} for counts in (255, 65535] -- the OXLI
+        bigcount section.  Merges live candidates with any map loaded
+        from disk."""
+        out = dict(self.bigcounts)
+        if self.bigcount_candidates:
+            cand = np.fromiter(self.bigcount_candidates, np.uint64,
+                               len(self.bigcount_candidates))
+            counts = sketch_get(self._geom, self.table,
+                                _u64.as_tensor(cand, self.device),
+                                BIGCOUNT_CAP).cpu().numpy()
+            for h, c in zip(cand, counts):
+                if c > MAX_KCOUNT:
+                    out[int(h)] = min(int(c), MAX_BIGCOUNT)
+        return out
+
+    def overlay_bigcounts(self, counts, hashes):
+        """Overlay a *loaded* bigcount map onto capped reads (numpy)."""
+        if not self._use_bigcount or not self.bigcounts:
+            return counts
+        counts = np.array(counts, copy=True)
+        hs = np.asarray(hashes, dtype=np.uint64).reshape(-1)
+        for i in np.nonzero(counts == MAX_KCOUNT)[0]:
+            v = self.bigcounts.get(int(hs[i]))
+            if v is not None:
+                counts[i] = v
+        return counts
+
+    # -- update/query -----------------------------------------------------
+
+    def add_lanes(self, hashes, weights):
+        """Add a batch of device lanes (int64 hashes, int32 weights, lane
+        order = insertion order); returns the per-lane was-new flags with
+        the reference's exact sequential semantics (storage.hh:176-203)."""
+        if self._claim is None:
+            self._claim = alloc_claim(self.spec, self.device)
+        track = self.kind == "byte" and self._use_bigcount
+        is_new, found, overflowed = sketch_update(
+            self._geom, self.table, self._claim, self._n_unique, hashes,
+            weights, track_bigcount=track)
+        self._loaded_occupied = None
+        if track:
+            self.bigcount_candidates.update(int(x) for x in found)
+            if overflowed:
+                # more crossing lanes than the candidate buffer holds:
+                # recover EXACTLY from the batch itself -- bins hold true
+                # totals, so every live hash now above 255 is a
+                # candidate.  The OXLI bigcount section must be complete.
+                live = torch.unique(hashes[weights != 0])
+                self.bigcount_candidates.update(
+                    int(x) for x in self._counts_over_kcount(live))
+        return is_new
+
+    def add_batch(self, hashes, weights=None):
+        """add_lanes for host uint64 hashes (and optional uint32
+        weights); returns was-new as a numpy bool array."""
+        h = _u64.as_tensor(hashes, self.device).reshape(-1)
+        if weights is None:
+            w = torch.ones(h.numel(), dtype=torch.int32, device=self.device)
+        else:
+            w = torch.from_numpy(np.asarray(weights, np.uint32).reshape(-1)
+                                 .view(np.int32)).to(self.device)
+        return self.add_lanes(h, w).cpu().numpy()
+
+    def add(self, khash):
+        """Single-hash add; returns True when the k-mer was unseen."""
+        return bool(self.add_batch([khash])[0])
+
+    def get_lanes(self, hashes, cap=None):
+        """Counts of device hashes, capped at the read cap (uint16)."""
+        return sketch_get(self._geom, self.table, hashes,
+                          self.read_cap() if cap is None else cap)
+
+    def get_batch(self, hashes):
+        """Counts for host hashes (numpy), with the loaded-map overlay."""
+        hashes = np.asarray(hashes, dtype=np.uint64).reshape(-1)
+        counts = self.get_lanes(_u64.as_tensor(hashes, self.device))
+        counts = counts.cpu().numpy()
+        if self.kind == "byte":
+            counts = self.overlay_bigcounts(counts, hashes)
+        return counts
+
+    def get(self, khash):
+        return int(self.get_batch([khash])[0])
+
+    # -- host access ------------------------------------------------------
+
+    def raw_bytes(self):
+        """All table bytes in OXLI on-disk layout, host numpy."""
+        return pack_oxli_bytes(self.spec, self.table)
+
+    def set_raw_bytes(self, data, n_occupied=0):
+        data = np.asarray(data, dtype=np.uint8)
+        if data.size != self.spec.total_bytes:
+            raise ValueError("raw byte size mismatch")
+        self.table = unpack_oxli_bytes(self.spec, data, self.device)
+        self._n_unique.zero_()
+        self._loaded_occupied = int(n_occupied)
+        self.bigcount_candidates = set()
+
+
+class BitStorage(Storage):
+    """Bloom filter (reference storage.hh:99-233)."""
+
+    kind = "bit"
+
+
+class ByteStorage(Storage):
+    """Count-Min sketch with 8-bit counters + bigcount (storage.hh:485-664)."""
+
+    kind = "byte"
+    supports_bigcount = True
