@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
      loader (g++) from the sources in the checkout;
   3. kernels: every kernel of the main path against its plain PyTorch
      version on the card, from the seed, at the main path's shapes;
-     exact equality (all outputs are integers); CUDA-event times;
+     exact equality (all outputs are integers); CUDA-event times; K2
+     also on a skewed batch (one hash on half the lanes: a hot
+     partition), and each of K2's passes timed apart (torch.profiler);
   4. main path: load-into-counting (-k 20 -N 4 -x 1e8) then
      abundance-dist-single and abundance-dist on synthetic 100-bp reads
      at 20x over a random 3.2 Mbase genome (bench.py's input), through
@@ -18,7 +20,7 @@ Phases (any failure exits non-zero; nothing is caught):
      histograms identical) and (b) an exact numpy count of the
      canonical k-mers (n_unique and the histogram total within the
      collision bound of the table sizes).  Every kernel must have been
-     launched by this run.
+     launched by this run; its peak device memory is printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -114,6 +116,28 @@ def bound_ms(nbytes):
 # ---------------------------------------------------------------------------
 
 
+def kernel_ms_by_name(fn, reps):
+    """Device time per call of fn by CUDA kernel name (torch.profiler),
+    over reps calls after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / reps
+    return by_name
+
+
 def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
                   scatter_bins=100_000_003, scatter_lanes=1 << 24):
     import torch
@@ -122,21 +146,22 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
     from khmer_tpu_torch.hashtable import CHUNK
     from khmer_tpu_torch.kernels import plain
     from khmer_tpu_torch.ops.sketch_ops import (BIGCOUNT_LANES, SketchSpec,
-                                                alloc_claim, alloc_table)
+                                                alloc_table)
     from khmer_tpu_torch.primes import get_n_primes_near_x
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     rec = {}
 
-    def record(name, err, ms, plain_ms, nbytes, library_ms=None):
+    def record(name, err, ms, plain_ms, nbytes, library_ms=None, **extra):
         rec[name] = dict(match=err == 0, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms,
                          bound_ms=bound_ms(nbytes), bound_by="bytes",
-                         library_ms=library_ms)
+                         library_ms=library_ms, **extra)
         log("kernel {:20s} max_abs_err={} ms={:.4f} plain_ms={:.4f} "
-            "bound_ms={:.4f} library_ms={}".format(
-                name, err, ms, plain_ms, bound_ms(nbytes), library_ms))
+            "bound_ms={:.4f} library_ms={}{}".format(
+                name, err, ms, plain_ms, bound_ms(nbytes), library_ms,
+                "".join(" {}={}".format(k, v) for k, v in extra.items())))
         if err != 0:
             fail("{} disagrees with its plain version".format(name))
 
@@ -160,9 +185,11 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
            n * (1 + 1 + 8 + 4))
 
     # K2 on a pre-filled 4 x 1e8 sketch with a 2**23-lane batch full of
-    # duplicates (about 8 lanes per distinct hash) and masked lanes
+    # duplicates (about 8 lanes per distinct hash) and masked lanes, and
+    # on a skewed batch: one hash on half the lanes (a hot partition in
+    # every table, as poly-A reads make), the rest as before
     spec = SketchSpec("byte", tuple(get_n_primes_near_x(4, table_size)))
-    sizes, offsets = spec.geometry(dev)
+    geom = spec.geometry(dev)
     T = spec.n_tables
     table = alloc_table(spec, dev)
     fill = torch.randint(0, spec.total_bins, (spec.total_bins // 10,),
@@ -178,75 +205,97 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
     del hi, lo
     weights = (torch.rand(lanes, generator=g, device=dev) < 0.9).to(
         torch.int32)
-    claim = alloc_claim(spec, dev)
-    outs = {}
-    for side, fn in (("kernel", kernels.sketch_update),
-                     ("plain", plain.sketch_update)):
-        t = table.clone()
+    skewed = hashes.clone()
+    skewed[torch.randperm(lanes, generator=g, device=dev)[:lanes // 2]] = \
+        hashes[0]
+
+    def k2_check(batch):
+        outs = {}
+        for side, fn in (("kernel", kernels.sketch_update),
+                         ("plain", plain.sketch_update)):
+            t = table.clone()
+            nu = torch.zeros(1, dtype=torch.int64, device=dev)
+            cand = torch.zeros(BIGCOUNT_LANES, dtype=torch.int64, device=dev)
+            cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+            is_new = fn(t, batch, weights, *geom, nu, cand, cnt)
+            outs[side] = [t, nu, is_new, cnt]
+            # an overflowed buffer holds an arbitrary subset: count only
+            if int(cnt.item()) <= BIGCOUNT_LANES:
+                outs[side].append(torch.sort(cand[:int(cnt.item())]).values)
+        return max(max_abs_err(a, b) for a, b in zip(outs["kernel"],
+                                                     outs["plain"])), \
+            outs["kernel"]
+
+    def k2(fn, batch):
         nu = torch.zeros(1, dtype=torch.int64, device=dev)
-        cand = torch.zeros(BIGCOUNT_LANES, dtype=torch.int64, device=dev)
         cnt = torch.zeros(1, dtype=torch.int32, device=dev)
-        is_new = fn(t, claim, hashes, weights, sizes, offsets, nu, cand, cnt)
-        c = int(cnt.item())
-        if c > BIGCOUNT_LANES or c == 0:
-            fail("K2 check: {} candidate lanes, expected 1..{}".format(
-                c, BIGCOUNT_LANES))
-        outs[side] = (t, nu, is_new, cnt, torch.sort(cand[:c]).values)
-        if not bool((claim == plain.CLAIM_FREE).all()):
-            fail("sketch_update left claims behind")
-    err = max(max_abs_err(a, b) for a, b in zip(outs["kernel"],
-                                                 outs["plain"]))
-    post = outs["kernel"][0]
-    del outs
+        cand = torch.empty(BIGCOUNT_LANES, dtype=torch.int64, device=dev)
+        return lambda: fn(table, batch, weights, *geom, nu, cand, cnt)
+
+    err_skew, out = k2_check(skewed)
+    c = int(out[3].item())
+    if c < lanes // 4:
+        fail("K2 skewed check: {} candidate lanes, expected at least {} "
+             "(the hot hash's live lanes cross 255)".format(c, lanes // 4))
+    del out
+    err, out = k2_check(hashes)
+    c = int(out[3].item())
+    if c > BIGCOUNT_LANES or c == 0:
+        fail("K2 check: {} candidate lanes, expected 1..{}".format(
+            c, BIGCOUNT_LANES))
+    post = out[0]
+    del out
+    for name, batch in (("batch", hashes), ("skewed", skewed)):
+        passes = kernel_ms_by_name(k2(kernels.sketch_update, batch), 5)
+        log("K2 passes on the {} ({} [{}]): {}".format(
+            name, "ms per call, torch.profiler", card_line(),
+            "; ".join("{} {:.4f}".format(k, v) for k, v in
+                      sorted(passes.items(), key=lambda kv: -kv[1]))))
     # table traffic: the bins of each distinct live hash, read and written
     live = weights != 0
     n_live = int(live.sum())
     distinct_live = int(torch.unique(hashes[live]).numel())
     del live
+    skew_ms = cuda_ms(k2(kernels.sketch_update, skewed), 5)
+    record("sketch_update", max(err, err_skew),
+           cuda_ms(k2(kernels.sketch_update, hashes), 5),
+           cuda_ms(k2(plain.sketch_update, hashes), 2),
+           lanes * (4 + 1) + n_live * 8 + distinct_live * T * (4 + 4),
+           skewed_ms=skew_ms, skewed_max_abs_err=err_skew)
+    del table, skewed
 
-    def k2(fn):
-        nu = torch.zeros(1, dtype=torch.int64, device=dev)
-        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
-        cand = torch.empty(BIGCOUNT_LANES, dtype=torch.int64, device=dev)
-        return lambda: fn(table, claim, hashes, weights, sizes, offsets, nu,
-                          cand, cnt)
-
-    record("sketch_update", err, cuda_ms(k2(kernels.sketch_update), 5),
-           cuda_ms(k2(plain.sketch_update), 2),
-           lanes * (4 + 1) + n_live * 8 + distinct_live * T * (4 + 4))
-    del table
-
-    # K3 under each read cap, on the updated sketch
+    # K3 under each read cap, on the updated sketch.  No one PyTorch call
+    # computes K3's function; the gather of precomputed bins and its min
+    # is printed beside it as gather_min_ms.
     err = 0
     for cap in (255, 65535, 1):
         err = max(err, max_abs_err(
-            kernels.sketch_get(post, hashes, sizes, offsets, cap),
-            plain.sketch_get(post, hashes, sizes, offsets, cap)))
+            kernels.sketch_get(post, hashes, *geom, cap),
+            plain.sketch_get(post, hashes, *geom, cap)))
     distinct = int(torch.unique(hashes).numel())
-    bins = plain._bins(hashes, sizes, offsets)
-    library = cuda_ms(lambda: torch.amin(post[bins], dim=0), 5)
+    bins = plain._bins(hashes, *geom[:2])
+    gather_min = cuda_ms(lambda: torch.amin(post[bins], dim=0), 5)
     del bins
     record("sketch_get", err,
-           cuda_ms(lambda: kernels.sketch_get(post, hashes, sizes, offsets,
-                                              65535), 10),
-           cuda_ms(lambda: plain.sketch_get(post, hashes, sizes, offsets,
-                                            65535), 3),
-           lanes * (8 + 2) + distinct * 4 * T, library)
+           cuda_ms(lambda: kernels.sketch_get(post, hashes, *geom, 65535),
+                   10),
+           cuda_ms(lambda: plain.sketch_get(post, hashes, *geom, 65535), 3),
+           lanes * (8 + 2) + distinct * 4 * T, gather_min_ms=gather_min)
 
     # K4 on one chunk's sorted live hashes against the updated sketch
     keys = torch.sort(chunk_h[chunk_w != 0]).values
     n_distinct = int(torch.unique_consecutive(keys).numel())
     hk = torch.zeros(65536, dtype=torch.int64, device=dev)
     hp = torch.zeros_like(hk)
-    kernels.abund_hist(keys, post, sizes, offsets, 65535, hk)
-    plain.abund_hist(keys, post, sizes, offsets, 65535, hp)
+    kernels.abund_hist(keys, post, *geom, 65535, hk)
+    plain.abund_hist(keys, post, *geom, 65535, hp)
     record("abund_hist", max_abs_err(hk, hp),
-           cuda_ms(lambda: kernels.abund_hist(keys, post, sizes, offsets,
-                                              65535, hk), 10),
-           cuda_ms(lambda: plain.abund_hist(keys, post, sizes, offsets,
-                                            65535, hp), 3),
+           cuda_ms(lambda: kernels.abund_hist(keys, post, *geom, 65535, hk),
+                   10),
+           cuda_ms(lambda: plain.abund_hist(keys, post, *geom, 65535, hp),
+                   3),
            keys.numel() * 8 + n_distinct * 4 * T + 65536 * 8 * 2)
-    del post, claim, hashes, weights
+    del post, hashes, weights
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -260,11 +309,21 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
     tp = torch.zeros_like(tk)
     kernels.bin_scatter_add(tk, idx, vals)
     plain.bin_scatter_add(tp, idx, vals)
+    # the wrapper is timed whole: its launches and its one read of the
+    # out-of-range count
     record("bin_scatter_add", max_abs_err(tk, tp),
            cuda_ms(lambda: kernels.bin_scatter_add(tk, idx, vals), 10),
            cuda_ms(lambda: plain.bin_scatter_add(tp, idx, vals), 10),
            N * (8 + 4 + 4 + 4),
            cuda_ms(lambda: tp.index_add_(0, idx, vals), 10))
+    for name, fn in (("bin_scatter_add",
+                      lambda: kernels.bin_scatter_add(tk, idx, vals)),
+                     ("index_add_", lambda: tp.index_add_(0, idx, vals))):
+        passes = kernel_ms_by_name(fn, 5)
+        log("{} passes (ms per call, torch.profiler [{}]): {}".format(
+            name, card_line(), "; ".join(
+                "{} {:.4f}".format(k, v) for k, v in
+                sorted(passes.items(), key=lambda kv: -kv[1]))))
     del idx, vals, tk, tp
     gc.collect()
     torch.cuda.empty_cache()
@@ -361,6 +420,8 @@ def sync(dev):
 
 
 def main_path(seed, card, dev, tmp, genome_mb=3.2):
+    import torch
+
     from khmer_tpu_torch import Countgraph, Nodegraph, kernels
     from khmer_tpu_torch.kernels import plain
     from khmer_tpu_torch.primes import get_n_primes_near_x
@@ -374,10 +435,15 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
         seqs.shape[0], seqs.shape[1], n_bases, n_kmers,
         time.perf_counter() - t0))
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     got = run_scripts(os.path.join(tmp, "kernels"), fa, dev)
     launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     log("main path launches: {}".format(json.dumps(launches)))
+    log("main path peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
     log("main path walls (s): {} [{}]".format(json.dumps(got["walls"]),
                                               card))
     missing = [k for k, v in launches.items() if v == 0]

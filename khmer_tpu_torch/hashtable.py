@@ -255,7 +255,6 @@ class Hashtable:
         ts = tracking.storage
         hist = torch.zeros(MAX_BIGCOUNT + 1, dtype=torch.int64,
                            device=self.device)
-        sizes, offsets = st._geom
         cap = st.read_cap()
         # a bigcount map loaded from disk overlays saturated reads
         overlay = st.get_use_bigcount() and bool(st.bigcounts)
@@ -265,7 +264,7 @@ class Hashtable:
             h, w = chunk_hashes(codes, mask, self._ksize)
             member = ts.get_lanes(h).to(torch.int32)
             keys = torch.sort(h[(w != 0) & (member == 0)]).values
-            kernels.abund_hist(keys, st.table, sizes, offsets, cap, hist)
+            kernels.abund_hist(keys, st.table, *st._geom, cap, hist)
             ts.add_lanes(keys, torch.ones_like(keys, dtype=torch.int32))
             if overlay:
                 uniq = torch.unique_consecutive(keys)

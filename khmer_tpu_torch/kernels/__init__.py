@@ -2,14 +2,16 @@
 
 For a CUDA tensor a wrapper launches its hand-written kernel (csrc/,
 built at first use by _build) on the current stream and adds the
-number of kernels it launched to LAUNCHES[name] (KERNELS_PER_CALL: three
+number of kernels it launched to LAUNCHES[name] (KERNELS_PER_CALL: ten
 for sketch_update, one for the others); for a CPU tensor it calls the
 plain PyTorch version in plain.py.  A failed build or launch raises;
 nothing falls back.
 
 Tensor conventions: hashes are int64 bit patterns of uint64; sketch
 tables are int32 bit patterns of uint32 bins (sum(sizes) + 1 bins);
-`sizes` and `offsets` are int64 [T] tensors on the table's device.
+`sizes`, `offsets` and `recips` (the Barrett reciprocals of the sizes,
+ops/sketch_ops.py:barrett_recips, as int64 bit patterns) are int64 [T]
+tensors on the table's device.
 """
 
 import ctypes
@@ -21,10 +23,15 @@ from khmer_tpu_torch.kernels import _build, plain
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-# sketch_update is three launches: claim, add, release (csrc/sketch.cu)
-KERNELS_PER_CALL = dict(dict.fromkeys(KERNELS, 1), sketch_update=3)
-MAX_TABLES = 32   # the claim launch keeps one bit per table
-MAX_LANES = (1 << 31) - 1   # lane indices are int32 claims
+# sketch_update is the partitioned update of csrc/sketch.cu: count,
+# bucket scan, bucket, partition count, two scan launches, place, apply,
+# hot and finish
+KERNELS_PER_CALL = dict(dict.fromkeys(KERNELS, 1), sketch_update=10)
+MAX_TABLES = 32               # khmer's -N; tested at 1, 3, 4 and 32
+MAX_RECORDS = (1 << 31) - 1   # records (lanes x tables) carry int32 offsets
+MAX_BINS = 1 << 33            # K2's bucket pass keeps a counter per bucket
+                              # in shared memory
+_META_WORDS = 8               # csrc/sketch.cu kMetaWords
 
 
 def reset_launches():
@@ -43,15 +50,28 @@ def _check(name, t, dtype, device):
         raise ValueError("{}: tensor is not contiguous".format(name))
 
 
-def _check_geometry(table, sizes, offsets):
+def _check_geometry(table, sizes, offsets, recips):
     dev = table.device
     _check("table", table, torch.int32, dev)
-    _check("sizes", sizes, torch.int64, dev)
-    _check("offsets", offsets, torch.int64, dev)
+    for name, t in (("sizes", sizes), ("offsets", offsets),
+                    ("recips", recips)):
+        _check(name, t, torch.int64, dev)
     if not 0 < sizes.numel() <= MAX_TABLES or \
-            offsets.numel() != sizes.numel():
-        raise ValueError("need 1..{} tables with one offset each".format(
-            MAX_TABLES))
+            offsets.numel() != sizes.numel() or \
+            recips.numel() != sizes.numel():
+        raise ValueError("need 1..{} tables with one offset and one "
+                         "reciprocal each".format(MAX_TABLES))
+
+
+def _partition_work(n_records, nbins, dev):
+    """Scratch and zeroed meta words of one sketch_update call."""
+    if n_records > MAX_RECORDS:
+        raise ValueError("{} records exceed {}".format(n_records,
+                                                       MAX_RECORDS))
+    nbytes = _build.function("khmer_partition_scratch_bytes")(n_records,
+                                                              nbins)
+    return (torch.empty(nbytes, dtype=torch.uint8, device=dev),
+            torch.zeros(_META_WORDS, dtype=torch.int32, device=dev))
 
 
 def _launch(name, *args):
@@ -84,95 +104,102 @@ def hash2bit_canonical(codes, mask, k):
     return hashes, weights
 
 
-def sketch_update(table, claim, hashes, weights, sizes, offsets, n_unique,
+def sketch_update(table, hashes, weights, sizes, offsets, recips, n_unique,
                   cand=None, cand_count=None):
     """K2: add weighted hashes to the sketch with the exact sequential
-    claim rule (lane order is insertion order).  claim is an int32
-    scratch as long as table, all CLAIM_FREE, and is left so.  Adds the
-    new lanes to n_unique (int64 [1]); with cand (int64 [cap]) and
-    cand_count (int32 [1], zeroed by the caller) it records the lanes
-    whose table-0 bin now exceeds 255.  Returns is_new, bool [n]."""
+    claim rule (lane order is insertion order).  Adds the new lanes to
+    n_unique (int64 [1]); with cand (int64 [cap]) and cand_count (int32
+    [1], zeroed by the caller) it records the lanes whose table-0 bin
+    now exceeds 255.  Returns is_new, bool [n].  On the card the update
+    allocates a per-call scratch of about 21 bytes per record (lanes x
+    tables), never one as large as the table."""
     dev = table.device
-    _check_geometry(table, sizes, offsets)
-    _check("claim", claim, torch.int32, dev)
+    _check_geometry(table, sizes, offsets, recips)
     _check("hashes", hashes, torch.int64, dev)
     _check("weights", weights, torch.int32, dev)
     _check("n_unique", n_unique, torch.int64, dev)
-    if claim.numel() != table.numel() or weights.numel() != hashes.numel() \
-            or hashes.numel() > MAX_LANES:
+    if weights.numel() != hashes.numel():
         raise ValueError("sketch_update: mismatched lengths")
+    if table.numel() > MAX_BINS:
+        raise ValueError("sketch_update: more than {} bins".format(MAX_BINS))
     if cand is not None:
         _check("cand", cand, torch.int64, dev)
         _check("cand_count", cand_count, torch.int32, dev)
     if dev.type != "cuda":
-        return plain.sketch_update(table, claim, hashes, weights, sizes,
-                                   offsets, n_unique, cand, cand_count)
+        return plain.sketch_update(table, hashes, weights, sizes, offsets,
+                                   recips, n_unique, cand, cand_count)
     n = hashes.numel()
     is_new = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        zero_mask = torch.empty(n, dtype=torch.int32, device=dev)
-        _launch("sketch_update", table.data_ptr(), claim.data_ptr(),
+        scratch, meta = _partition_work(n * sizes.numel(), table.numel(),
+                                        dev)
+        _launch("sketch_update", table.data_ptr(), table.numel(),
                 hashes.data_ptr(), weights.data_ptr(), n, sizes.numel(),
-                sizes.data_ptr(), offsets.data_ptr(), zero_mask.data_ptr(),
-                is_new.data_ptr(), n_unique.data_ptr(),
+                sizes.data_ptr(), offsets.data_ptr(), recips.data_ptr(),
+                scratch.data_ptr(), meta.data_ptr(), is_new.data_ptr(),
+                n_unique.data_ptr(),
                 cand.data_ptr() if cand is not None else None,
                 cand.numel() if cand is not None else 0,
                 cand_count.data_ptr() if cand is not None else None)
     return is_new
 
 
-def sketch_get(table, hashes, sizes, offsets, cap):
+def sketch_get(table, hashes, sizes, offsets, recips, cap):
     """K3: min over tables of the bin totals, capped at cap (255, 65535
     or 1); uint16 [n]."""
     dev = table.device
-    _check_geometry(table, sizes, offsets)
+    _check_geometry(table, sizes, offsets, recips)
     _check("hashes", hashes, torch.int64, dev)
     if dev.type != "cuda":
-        return plain.sketch_get(table, hashes, sizes, offsets, cap)
+        return plain.sketch_get(table, hashes, sizes, offsets, recips, cap)
     n = hashes.numel()
     out = torch.empty(n, dtype=torch.uint16, device=dev)
     if n:
         _launch("sketch_get", table.data_ptr(), hashes.data_ptr(), n,
                 sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
-                int(cap), out.data_ptr())
+                recips.data_ptr(), int(cap), out.data_ptr())
     return out
 
 
-def abund_hist(keys, table, sizes, offsets, cap, hist):
+def abund_hist(keys, table, sizes, offsets, recips, cap, hist):
     """K4: for the first lane of every run of equal hashes in the sorted
     keys (int64 [n]), hist[min(count, cap)] += 1, where count is the
     sketch's min over tables.  hist is int64 [65536], updated in place."""
     dev = table.device
-    _check_geometry(table, sizes, offsets)
+    _check_geometry(table, sizes, offsets, recips)
     _check("keys", keys, torch.int64, dev)
     _check("hist", hist, torch.int64, dev)
     if hist.numel() <= cap:
         raise ValueError("abund_hist: histogram shorter than cap + 1")
     if dev.type != "cuda":
-        return plain.abund_hist(keys, table, sizes, offsets, cap, hist)
+        return plain.abund_hist(keys, table, sizes, offsets, recips, cap,
+                                hist)
     n = keys.numel()
     if n:
         _launch("abund_hist", keys.data_ptr(), n, table.data_ptr(),
                 sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
-                int(cap), hist.data_ptr())
+                recips.data_ptr(), int(cap), hist.data_ptr())
 
 
 def bin_scatter_add(table, idx, vals):
     """table[idx] += vals for int32 (uint32 bit pattern) table and vals
-    and int64 idx; any bins, duplicates included."""
+    and int64 idx; any bins, duplicates summed.  A bin outside
+    [0, table.numel()) raises IndexError; on the card the other lanes
+    have then been added already (the table is partly updated, as with
+    index_add_), because the kernel counts and skips such lanes and the
+    wrapper reads that count once after the launch."""
     dev = table.device
     _check("table", table, torch.int32, dev)
     _check("idx", idx, torch.int64, dev)
     _check("vals", vals, torch.int32, dev)
     if idx.numel() != vals.numel():
         raise ValueError("bin_scatter_add: mismatched lengths")
-    n = idx.numel()
-    if n:
-        lo, hi = torch.aminmax(idx)
-        if int(lo) < 0 or int(hi) >= table.numel():
-            raise IndexError("bin_scatter_add: bin index out of range")
     if dev.type != "cuda":
         return plain.bin_scatter_add(table, idx, vals)
+    n = idx.numel()
     if n:
-        _launch("bin_scatter_add", table.data_ptr(), idx.data_ptr(),
-                vals.data_ptr(), n)
+        bad = torch.empty(1, dtype=torch.int32, device=dev)
+        _launch("bin_scatter_add", table.data_ptr(), table.numel(),
+                idx.data_ptr(), vals.data_ptr(), n, bad.data_ptr())
+        if int(bad):
+            raise IndexError("bin_scatter_add: bin index out of range")

@@ -27,11 +27,15 @@ _P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C entry point -> argument types; every entry returns a cudaError_t
 SIGNATURES = {
     "khmer_hash2bit_canonical": (_P, _P, _LL, _I, _P, _P, _P),
-    "khmer_sketch_update": (_P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P,
-                            _P, _I, _P, _P),
-    "khmer_sketch_get": (_P, _P, _LL, _I, _P, _P, _U, _P, _P),
-    "khmer_bin_scatter_add": (_P, _P, _P, _LL, _P),
-    "khmer_abund_hist": (_P, _LL, _P, _I, _P, _P, _U, _P, _P),
+    "khmer_sketch_update": (_P, _LL, _P, _P, _LL, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _P, _P),
+    "khmer_sketch_get": (_P, _P, _LL, _I, _P, _P, _P, _U, _P, _P),
+    "khmer_bin_scatter_add": (_P, _LL, _P, _P, _LL, _P, _P),
+    "khmer_abund_hist": (_P, _LL, _P, _I, _P, _P, _P, _U, _P, _P),
+}
+# C helpers that launch nothing: name -> (argument types, result type)
+HELPERS = {
+    "khmer_partition_scratch_bytes": ((_LL, _LL), _LL),
 }
 
 _lock = threading.Lock()
@@ -91,10 +95,13 @@ def function(name):
             if not _funcs:
                 for path in build().values():
                     lib = ctypes.CDLL(path)
-                    for fn_name, argtypes in SIGNATURES.items():
+                    entries = {**{k: (v, ctypes.c_int)
+                                  for k, v in SIGNATURES.items()},
+                               **HELPERS}
+                    for fn_name, (argtypes, restype) in entries.items():
                         fn = getattr(lib, fn_name, None)
                         if fn is not None:
                             fn.argtypes = argtypes
-                            fn.restype = ctypes.c_int
+                            fn.restype = restype
                             _funcs[fn_name] = fn
     return _funcs[name]

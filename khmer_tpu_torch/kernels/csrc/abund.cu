@@ -17,6 +17,7 @@ __global__ void abund_hist_kernel(const u64* __restrict__ keys, long long n,
                                   const unsigned* __restrict__ table, int T,
                                   const long long* __restrict__ sizes,
                                   const long long* __restrict__ offs,
+                                  const u64* __restrict__ recips,
                                   unsigned cap, u64* __restrict__ hist) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -24,16 +25,17 @@ __global__ void abund_hist_kernel(const u64* __restrict__ keys, long long n,
     if (i > 0 && keys[i - 1] == h) return;
     unsigned m = 0xFFFFFFFFu;
     for (int t = 0; t < T; t++)
-        m = min(m, table[bin_of(h, t, sizes, offs)]);
+        m = min(m, table[bin_of(h, t, sizes, offs, recips)]);
     atomicAdd(hist + min(m, cap), 1ULL);
 }
 
 extern "C" int khmer_abund_hist(const void* keys, long long n,
                                 const void* table, int T, const void* sizes,
-                                const void* offs, unsigned cap, void* hist,
-                                void* stream) {
+                                const void* offs, const void* recips,
+                                unsigned cap, void* hist, void* stream) {
     abund_hist_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
         (const u64*)keys, n, (const unsigned*)table, T,
-        (const long long*)sizes, (const long long*)offs, cap, (u64*)hist);
+        (const long long*)sizes, (const long long*)offs, (const u64*)recips,
+        cap, (u64*)hist);
     return (int)cudaGetLastError();
 }

@@ -20,10 +20,22 @@ inline unsigned blocks_for(long long n) {
     return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-// The 64-bit modulo is emulated in software on the card (tens of
-// instructions); it is the bulk of each sketch kernel's arithmetic.
+// h % p by a reciprocal (Barrett) multiply: m = floor((2^64 - 1) / p) is
+// computed on the host (ops/sketch_ops.py:barrett_recips).  q = the high
+// word of h * m is at most two below floor(h / p), so at most two
+// subtractions finish the remainder; the Python mirror of these lines is
+// tested against % for p = 1, 2, 3, the bench primes and a p > 2^32.
+__device__ __forceinline__ u64 mod_barrett(u64 h, u64 p, u64 m) {
+    u64 r = h - __umul64hi(h, m) * p;
+    if (r >= p) r -= p;
+    if (r >= p) r -= p;
+    return r;
+}
+
 __device__ __forceinline__ long long bin_of(u64 h, int t,
                                             const long long* sizes,
-                                            const long long* offs) {
-    return (long long)(h % (u64)__ldg(sizes + t)) + __ldg(offs + t);
+                                            const long long* offs,
+                                            const u64* recips) {
+    return (long long)mod_barrett(h, (u64)__ldg(sizes + t),
+                                  __ldg(recips + t)) + __ldg(offs + t);
 }

@@ -12,8 +12,6 @@ import torch
 from khmer_tpu_torch import _u64
 from khmer_tpu_torch._config import MAX_KCOUNT
 
-CLAIM_FREE = 0x7FFFFFFF  # csrc/sketch.cu kClaimFree
-
 
 def hash2bit_canonical(codes, mask, k):
     """Canonical 2-bit hash of the window at every lane of a flat code
@@ -39,28 +37,31 @@ def _bins(hashes, sizes, offsets):
     return _u64.umod(hashes[None, :], sizes[:, None]) + offsets[:, None]
 
 
-def sketch_update(table, claim, hashes, weights, sizes, offsets, n_unique,
+def sketch_update(table, hashes, weights, sizes, offsets, recips, n_unique,
                   cand=None, cand_count=None):
     """Add weighted hashes to the sketch with the exact claim rule.
 
     Updates table, n_unique (int64 [1]) and, when cand is given, writes
     the hashes of the lanes whose table-0 bin now exceeds 255 into cand
-    (as many as fit) and their number into cand_count.  claim is
-    CLAIM_FREE everywhere on entry and on return.  Returns is_new, a
+    (as many as fit) and their number into cand_count.  The claimant of
+    a bin is its smallest lane, found over the batch's distinct bins.
+    recips is unused (the plain modulo needs none).  Returns is_new, a
     bool [n]."""
     n = hashes.numel()
     T = sizes.numel()
     lane = torch.nonzero(weights != 0).squeeze(1)
     h = hashes[lane]
-    pos = lane.to(torch.int32)
+    pos = lane.to(torch.int32).repeat(T)
     idx = _bins(h, sizes, offsets)
     flat = idx.reshape(-1)
     pre_zero = table[idx] == 0
-    claim.scatter_reduce_(0, flat, pos.repeat(T), "amin")
-    own = claim[idx] == pos[None, :]
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    first = torch.full((uniq.numel(),), n, dtype=torch.int32,
+                       device=hashes.device)
+    first.scatter_reduce_(0, inv, pos, "amin")
+    own = (first[inv] == pos).reshape(idx.shape)
     new = (pre_zero & own).any(0)
     table.index_add_(0, flat, weights[lane].repeat(T))
-    claim[flat] = CLAIM_FREE
     is_new = torch.zeros(n, dtype=torch.bool, device=hashes.device)
     is_new[lane] = new
     n_unique += new.sum()
@@ -72,24 +73,30 @@ def sketch_update(table, claim, hashes, weights, sizes, offsets, n_unique,
     return is_new
 
 
-def sketch_get(table, hashes, sizes, offsets, cap):
-    """Min over tables of the bin totals, capped at cap; uint16 [n]."""
+def sketch_get(table, hashes, sizes, offsets, recips, cap):
+    """Min over tables of the bin totals, capped at cap; uint16 [n]
+    (recips unused)."""
     tot = _u64.u32(table[_bins(hashes, sizes, offsets)]).amin(0)
     return tot.clamp(max=cap).to(torch.uint16)
 
 
-def abund_hist(keys, table, sizes, offsets, cap, hist):
+def abund_hist(keys, table, sizes, offsets, recips, cap, hist):
     """hist[min(count, cap)] += 1 for the first lane of every run of
     equal hashes in the sorted keys."""
     if keys.numel() == 0:
         return
     first = torch.ones_like(keys, dtype=torch.bool)
     first[1:] = keys[1:] != keys[:-1]
-    counts = sketch_get(table, keys[first], sizes, offsets, cap)
+    counts = sketch_get(table, keys[first], sizes, offsets, recips, cap)
     counts = counts.to(torch.int64)
     hist.index_add_(0, counts, torch.ones_like(counts))
 
 
 def bin_scatter_add(table, idx, vals):
-    """table[idx] += vals (u32 wrap-around), any idx."""
+    """table[idx] += vals (u32 wrap-around), any idx inside the table;
+    IndexError (and no update) for a bin outside it."""
+    if idx.numel():
+        lo, hi = torch.aminmax(idx)
+        if int(lo) < 0 or int(hi) >= table.numel():
+            raise IndexError("bin_scatter_add: bin index out of range")
     table.index_add_(0, idx, vals)

@@ -22,7 +22,6 @@ import torch
 
 from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import BIN_DTYPE, MAX_KCOUNT
-from khmer_tpu_torch.kernels.plain import CLAIM_FREE
 
 BIGCOUNT_CAP = 65535
 # per-batch candidate budget for bigcount tracking; a batch that
@@ -68,11 +67,20 @@ class SketchSpec:
         return sum(self.bytes_per_table)
 
     def geometry(self, device):
-        """(sizes, offsets): int64 [T] tensors the kernels index with."""
+        """(sizes, offsets, recips): int64 [T] tensors the kernels index
+        with; recips holds barrett_recips as int64 bit patterns."""
+        recips = np.array(barrett_recips(self.tablesizes), np.uint64)
         return (torch.tensor(self.tablesizes, dtype=torch.int64,
                              device=device),
                 torch.tensor(self.bin_offsets, dtype=torch.int64,
-                             device=device))
+                             device=device),
+                torch.from_numpy(recips.view(np.int64)).to(device))
+
+
+def barrett_recips(tablesizes):
+    """floor((2**64 - 1) / p) for every table size p: the reciprocals
+    with which the kernels compute h % p (csrc/common.cuh:mod_barrett)."""
+    return [((1 << 64) - 1) // int(p) for p in tablesizes]
 
 
 def alloc_table(spec, device):
@@ -80,13 +88,7 @@ def alloc_table(spec, device):
     return torch.zeros(spec.total_bins + 1, dtype=BIN_DTYPE, device=device)
 
 
-def alloc_claim(spec, device):
-    """The claim scratch K2 needs: one int32 per bin, all free."""
-    return torch.full((spec.total_bins + 1,), CLAIM_FREE, dtype=torch.int32,
-                      device=device)
-
-
-def sketch_update(geom, table, claim, n_unique, hashes, weights,
+def sketch_update(geom, table, n_unique, hashes, weights,
                   track_bigcount=False):
     """Add a batch (int64 hashes, int32 weights; lane order = insertion
     order) with the exact claim rule.  Returns (is_new, candidates,
@@ -94,14 +96,13 @@ def sketch_update(geom, table, claim, n_unique, hashes, weights,
     hashes whose table-0 bin now exceeds 255 (None unless
     track_bigcount), and overflowed says that more lanes crossed than
     BIGCOUNT_LANES, so the list is incomplete."""
-    sizes, offsets = geom
     cand = cand_count = None
     if track_bigcount:
         cand = torch.empty(BIGCOUNT_LANES, dtype=torch.int64,
                            device=table.device)
         cand_count = torch.zeros(1, dtype=torch.int32, device=table.device)
-    is_new = kernels.sketch_update(table, claim, hashes, weights, sizes,
-                                   offsets, n_unique, cand, cand_count)
+    is_new = kernels.sketch_update(table, hashes, weights, *geom, n_unique,
+                                   cand, cand_count)
     if not track_bigcount:
         return is_new, None, False
     n_cross = int(cand_count.item())
@@ -111,8 +112,7 @@ def sketch_update(geom, table, claim, n_unique, hashes, weights,
 
 def sketch_get(geom, table, hashes, cap):
     """Batched count read: min over tables, capped at cap; uint16."""
-    sizes, offsets = geom
-    return kernels.sketch_get(table, hashes, sizes, offsets, cap)
+    return kernels.sketch_get(table, hashes, *geom, cap)
 
 
 def occupied_bins(spec, table):

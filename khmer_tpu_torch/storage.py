@@ -22,7 +22,6 @@ from khmer_tpu_torch._config import MAX_BIGCOUNT, MAX_KCOUNT, resolve_device
 from khmer_tpu_torch.ops.sketch_ops import (
     BIGCOUNT_CAP,
     SketchSpec,
-    alloc_claim,
     alloc_table,
     occupied_bins,
     pack_oxli_bytes,
@@ -48,7 +47,6 @@ class Storage:
         self.spec = SketchSpec(kind=self.kind, tablesizes=tablesizes)
         self.table = alloc_table(self.spec, self.device)
         self._geom = self.spec.geometry(self.device)
-        self._claim = None   # K2's scratch, allocated at the first add
         self._n_unique = torch.zeros(1, dtype=torch.int64,
                                      device=self.device)
         self._loaded_occupied = None
@@ -126,11 +124,9 @@ class Storage:
         """Add a batch of device lanes (int64 hashes, int32 weights, lane
         order = insertion order); returns the per-lane was-new flags with
         the reference's exact sequential semantics (storage.hh:176-203)."""
-        if self._claim is None:
-            self._claim = alloc_claim(self.spec, self.device)
         track = self.kind == "byte" and self._use_bigcount
         is_new, found, overflowed = sketch_update(
-            self._geom, self.table, self._claim, self._n_unique, hashes,
+            self._geom, self.table, self._n_unique, hashes,
             weights, track_bigcount=track)
         self._loaded_occupied = None
         if track:

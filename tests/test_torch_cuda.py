@@ -1,7 +1,9 @@
 """Each CUDA kernel of khmer_tpu_torch against its plain PyTorch version
 on the card, at small sizes and edge cases that chip_smoke.py does not
-reach (empty and ragged inputs, one table, weights >= 2**31, hashes >=
-2**63, a candidate buffer that overflows).  Integer data: exact
+reach (empty and ragged inputs, one table and 32, weights >= 2**31,
+hashes >= 2**63, a candidate buffer that overflows, a hot partition,
+bins beside partition and table boundaries, all lanes masked, unsorted
+and duplicate scatter bins).  Integer data: exact
 equality.  Marked `cuda`: they skip without a CUDA device and run on
 the card with `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py` (the suite's conftest imports jax, which the
@@ -13,8 +15,8 @@ import torch
 
 from khmer_tpu_torch import Countgraph, Nodegraph, _u64, kernels
 from khmer_tpu_torch.kernels import plain
-from khmer_tpu_torch.ops.sketch_ops import (SketchSpec, alloc_claim,
-                                            unpack_oxli_bytes)
+from khmer_tpu_torch.ops.sketch_ops import SketchSpec, unpack_oxli_bytes
+from khmer_tpu_torch.primes import get_n_primes_near_x
 from khmer_tpu_torch.storage import ByteStorage
 
 pytestmark = pytest.mark.cuda
@@ -65,36 +67,149 @@ def test_hash2bit_canonical(dev, n, k):
     assert torch.equal(h.cpu(), ph) and torch.equal(w.cpu(), pw)
 
 
-@pytest.mark.parametrize("sizes", [SIZES[:1], SIZES])
-@pytest.mark.parametrize("cap", [16, 1 << 16])
-def test_sketch_update(dev, sizes, cap):
-    rng = np.random.default_rng(len(sizes) + cap)
+def _k2_both(dev, sizes, table, hashes, weights, cap, plain_dev="cpu"):
+    """K2 on the card and its plain version on plain_dev from the same
+    inputs: [table, n_unique, is_new, cand_count, sorted candidates (None
+    when they overflowed cap)] for each side."""
     spec = SketchSpec("byte", sizes)
-    geom = [torch.tensor(x) for x in (spec.tablesizes, spec.bin_offsets)]
-    table = _table(rng, sizes, 300)
-    hashes = _u64.as_tensor(_hashes(rng, 3001, 700), "cpu")
-    weights = torch.from_numpy(
-        rng.choice(np.array([0, 1, 2, 2 ** 31 + 5], np.uint32), 3001,
-                   p=[0.2, 0.6, 0.19, 0.01]).view(np.int32))
     out = {}
-    for side, d in (("kernel", dev), ("plain", torch.device("cpu"))):
+    for side, d in (("kernel", dev), ("plain", torch.device(plain_dev))):
         t = table.clone().to(d)
-        claim = alloc_claim(spec, d)
         nu = torch.zeros(1, dtype=torch.int64, device=d)
         cand = torch.zeros(cap, dtype=torch.int64, device=d)
         cnt = torch.zeros(1, dtype=torch.int32, device=d)
         fn = kernels.sketch_update if side == "kernel" else \
             plain.sketch_update
-        is_new = fn(t, claim, hashes.to(d), weights.to(d),
-                    geom[0].to(d), geom[1].to(d), nu, cand, cnt)
-        assert bool((claim == plain.CLAIM_FREE).all())
+        is_new = fn(t, hashes.to(d), weights.to(d), *spec.geometry(d), nu,
+                    cand, cnt)
         c = int(cnt)
         out[side] = [x.cpu() for x in (t, nu, is_new, cnt)]
         out[side].append(
             torch.sort(cand[:c]).values.cpu() if c <= cap else None)
     for a, b in zip(out["kernel"], out["plain"]):
         assert (a is None and b is None) or torch.equal(a, b)
-    assert int(out["kernel"][3]) > 0
+    return out["kernel"]
+
+
+@pytest.mark.parametrize("sizes", [SIZES[:1], SIZES])
+@pytest.mark.parametrize("cap", [16, 1 << 16])
+def test_sketch_update(dev, sizes, cap):
+    rng = np.random.default_rng(len(sizes) + cap)
+    table = _table(rng, sizes, 300)
+    hashes = _u64.as_tensor(_hashes(rng, 3001, 700), "cpu")
+    weights = torch.from_numpy(
+        rng.choice(np.array([0, 1, 2, 2 ** 31 + 5], np.uint32), 3001,
+                   p=[0.2, 0.6, 0.19, 0.01]).view(np.int32))
+    got = _k2_both(dev, sizes, table, hashes, weights, cap)
+    assert int(got[3]) > 0
+
+
+def test_sketch_update_hot_partition(dev):
+    """One hash on 2**22 lanes amid random ones: its partition in every
+    table is split across blocks and combined through global atomics."""
+    rng = np.random.default_rng(12)
+    sizes = (1000003, 999983, 999979)
+    n_hot, n_rand = 1 << 22, 1 << 18
+    hashes = np.concatenate([np.full(n_hot, 0x9E3779B97F4A7C15, np.uint64),
+                             _hashes(rng, n_rand, 50000)])
+    hashes = hashes[rng.permutation(hashes.size)]
+    weights = (rng.random(hashes.size) < 0.95).astype(np.int32)
+    got = _k2_both(dev, sizes, _table(rng, sizes, 3),
+                   _u64.as_tensor(hashes, "cpu"), torch.from_numpy(weights),
+                   1 << 16, plain_dev=dev)
+    assert int(got[3]) > n_hot // 2 and got[4] is None
+
+
+def test_sketch_update_boundaries(dev):
+    """Bins on both sides of partition boundaries (multiples of 2048) and
+    of table offsets that are not multiples of it."""
+    rng = np.random.default_rng(13)
+    sizes = (12289, 8209, 16411)
+    picks = np.array([8191, 8192, 8193, 12288, 0, 1, 16383, 16384, 4095,
+                      4096, 8208, 20497, 2047, 2048, 2049], np.uint64)
+    hashes = np.concatenate([picks, picks + np.uint64(12289 * 8209 * 16411),
+                             _hashes(rng, 4000, 900)])
+    hashes = np.concatenate([hashes, hashes[::-1]])
+    weights = rng.integers(1, 3, hashes.size).astype(np.int32)
+    table = _table(rng, sizes, 2)
+    got = _k2_both(dev, sizes, table, _u64.as_tensor(hashes, "cpu"),
+                   torch.from_numpy(weights), 1 << 16)
+    assert int(got[1]) > 0
+
+
+def test_sketch_update_sparse_batch(dev):
+    """A few thousand lanes over 4 x ~5e6 bins: a tile of records spans
+    more partitions than a tile ranks in shared memory, and the rest take
+    their own global atomics."""
+    rng = np.random.default_rng(19)
+    sizes = tuple(get_n_primes_near_x(4, 5e6))
+    hashes = _u64.as_tensor(_hashes(rng, 3000, 2000), "cpu")
+    weights = torch.from_numpy(rng.integers(0, 3, 3000).astype(np.int32))
+    table = torch.zeros(sum(sizes) + 1, dtype=torch.int32)
+    got = _k2_both(dev, sizes, table, hashes, weights, 1 << 16)
+    assert int(got[1]) > 0
+
+
+def test_sketch_update_all_masked(dev):
+    rng = np.random.default_rng(14)
+    table = _table(rng, SIZES, 300)
+    hashes = _u64.as_tensor(_hashes(rng, 5000, 800), "cpu")
+    got = _k2_both(dev, SIZES, table, hashes,
+                   torch.zeros(5000, dtype=torch.int32), 1 << 16)
+    assert torch.equal(got[0], table) and int(got[1]) == 0
+    assert not bool(got[2].any()) and int(got[3]) == 0
+
+
+@pytest.mark.parametrize("T", [1, 32])
+def test_sketch_update_table_counts(dev, T):
+    rng = np.random.default_rng(15 + T)
+    sizes = tuple(get_n_primes_near_x(T, 3000))
+    hashes = _u64.as_tensor(_hashes(rng, 20000, 2500), "cpu")
+    weights = torch.from_numpy(rng.integers(0, 3, 20000).astype(np.int32))
+    got = _k2_both(dev, sizes, _table(rng, sizes, 300), hashes, weights,
+                   1 << 16)
+    assert int(got[1]) > 0 and int(got[3]) > 0
+
+
+def test_sketch_update_candidate_overflow(dev):
+    """More than 2**16 lanes cross 255: the count says so on both sides."""
+    rng = np.random.default_rng(16)
+    sizes = (70001, 69997)
+    hashes = np.unique(rng.integers(0, 2 ** 64, 70000, dtype=np.uint64))
+    table = torch.full((sum(sizes) + 1,), 300, dtype=torch.int32)
+    got = _k2_both(dev, sizes, table, _u64.as_tensor(hashes, "cpu"),
+                   torch.ones(hashes.size, dtype=torch.int32), 1 << 16)
+    assert int(got[3]) == hashes.size and got[4] is None
+
+
+def test_barrett_bins_on_card(dev):
+    """K2, K3 and K4 against their plain versions on the same hashes, for
+    the bench primes (4 x ~1e8 bins) and for table sizes 1, 2 and 3."""
+    rng = np.random.default_rng(17)
+    hashes = np.concatenate([
+        rng.integers(0, 2 ** 64, 1 << 16, dtype=np.uint64),
+        rng.integers(2 ** 63, 2 ** 64, 1 << 16, dtype=np.uint64),
+        np.array([0, 1, 2, 3, 2 ** 64 - 1, 2 ** 63], np.uint64)])
+    for sizes in (tuple(get_n_primes_near_x(4, 1e8)), (1, 2, 3)):
+        spec = SketchSpec("byte", sizes)
+        geom = spec.geometry(dev)
+        table = torch.zeros(spec.total_bins + 1, dtype=torch.int32,
+                            device=dev)
+        h = _u64.as_tensor(hashes, dev)
+        w = torch.ones(h.numel(), dtype=torch.int32, device=dev)
+        nu = torch.zeros(1, dtype=torch.int64, device=dev)
+        tp, nup = table.clone(), nu.clone()
+        assert torch.equal(kernels.sketch_update(table, h, w, *geom, nu),
+                           plain.sketch_update(tp, h, w, *geom, nup))
+        assert torch.equal(table, tp) and torch.equal(nu, nup)
+        assert torch.equal(kernels.sketch_get(table, h, *geom, 65535),
+                           plain.sketch_get(tp, h, *geom, 65535))
+        keys = torch.sort(h).values
+        hk = torch.zeros(65536, dtype=torch.int64, device=dev)
+        hp = torch.zeros_like(hk)
+        kernels.abund_hist(keys, table, *geom, 65535, hk)
+        plain.abund_hist(keys, tp, *geom, 65535, hp)
+        assert torch.equal(hk, hp)
 
 
 @pytest.mark.parametrize("cap", [1, 255, 65535])
@@ -102,10 +217,9 @@ def test_sketch_get(dev, cap):
     rng = np.random.default_rng(cap)
     table = _table(rng, SIZES, 2 ** 32)
     hashes = _u64.as_tensor(_hashes(rng, 777, 500), "cpu")
-    geom = [torch.tensor(x) for x in (SIZES, SketchSpec("byte", SIZES)
-                                      .bin_offsets)]
+    geom = SketchSpec("byte", SIZES).geometry("cpu")
     got = kernels.sketch_get(table.to(dev), hashes.to(dev),
-                             geom[0].to(dev), geom[1].to(dev), cap)
+                             *[g.to(dev) for g in geom], cap)
     assert torch.equal(got.cpu(), plain.sketch_get(table, hashes, *geom,
                                                    cap))
 
@@ -114,12 +228,11 @@ def test_abund_hist(dev):
     rng = np.random.default_rng(4)
     table = _table(rng, SIZES, 400)
     keys = torch.sort(_u64.as_tensor(_hashes(rng, 4000, 900), "cpu")).values
-    geom = [torch.tensor(x) for x in (SIZES, SketchSpec("byte", SIZES)
-                                      .bin_offsets)]
+    geom = SketchSpec("byte", SIZES).geometry("cpu")
     hk = torch.zeros(65536, dtype=torch.int64, device=dev)
     hp = torch.zeros(65536, dtype=torch.int64)
-    kernels.abund_hist(keys.to(dev), table.to(dev), geom[0].to(dev),
-                       geom[1].to(dev), 255, hk)
+    kernels.abund_hist(keys.to(dev), table.to(dev),
+                       *[g.to(dev) for g in geom], 255, hk)
     plain.abund_hist(keys, table, *geom, 255, hp)
     assert torch.equal(hk.cpu(), hp) and int(hp[0]) > 0
 
@@ -140,6 +253,46 @@ def test_bin_scatter_add_any_bins(dev):
                                            device=dev))
 
 
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "sorted-dups",
+                                   "hot"])
+def test_bin_scatter_add_orders(dev, order):
+    """Sorted unique bins (the .ct load), the same shuffled, sorted bins
+    with duplicates, and one bin repeated past a block's share."""
+    rng = np.random.default_rng(18)
+    B = 300007
+    if order == "hot":
+        idx = np.concatenate([np.full(70000, 123457),
+                              rng.integers(0, B, 20000)])
+    elif order == "sorted-dups":
+        idx = rng.integers(0, B, 50000)
+    else:  # unique bins, shuffled
+        idx = rng.choice(B, 50000, replace=False)
+    if order != "unsorted":
+        idx = np.sort(idx)
+    idx = torch.from_numpy(idx.astype(np.int64))
+    vals = torch.from_numpy(rng.integers(1, 5, idx.numel()).astype(np.int32))
+    base = _table(rng, (B - 1,), 2 ** 32)
+    tk, tp = base.to(dev), base.clone()
+    before = kernels.LAUNCHES["bin_scatter_add"]
+    kernels.bin_scatter_add(tk, idx.to(dev), vals.to(dev))
+    assert kernels.LAUNCHES["bin_scatter_add"] == \
+        before + kernels.KERNELS_PER_CALL["bin_scatter_add"]
+    plain.bin_scatter_add(tp, idx, vals)
+    assert torch.equal(tk.cpu(), tp)
+
+
+@pytest.mark.parametrize("bad", [-5, 300007])
+def test_bin_scatter_add_out_of_range(dev, bad):
+    """A bin outside the table raises after the launch; the lanes inside
+    it have been added."""
+    idx = torch.tensor([3, 7, bad, 9], device=dev)
+    vals = torch.ones(4, dtype=torch.int32, device=dev)
+    table = torch.zeros(300007, dtype=torch.int32, device=dev)
+    with pytest.raises(IndexError):
+        kernels.bin_scatter_add(table, idx, vals)
+    assert int(table.sum()) == 3
+
+
 @pytest.mark.parametrize("kind", ["byte", "bit"])
 def test_unpack_oxli_bytes_on_card(dev, kind):
     """The .ct load's widening on the card equals the CPU's."""
@@ -149,7 +302,8 @@ def test_unpack_oxli_bytes_on_card(dev, kind):
     data[rng.random(data.size) < 0.7] = 0
     before = kernels.LAUNCHES["bin_scatter_add"]
     got = unpack_oxli_bytes(spec, data, dev)
-    assert kernels.LAUNCHES["bin_scatter_add"] == before + 1
+    assert kernels.LAUNCHES["bin_scatter_add"] == \
+        before + kernels.KERNELS_PER_CALL["bin_scatter_add"]
     assert torch.equal(got.cpu(), unpack_oxli_bytes(spec, data, "cpu"))
 
 

@@ -12,8 +12,8 @@ from khmer_tpu.ops import sketch_ops as jax_ops
 from khmer_tpu.storage import ByteStorage as JaxByteStorage
 from khmer_tpu_torch import _u64
 from khmer_tpu_torch.kernels import bin_scatter_add
-from khmer_tpu_torch.kernels.plain import CLAIM_FREE
 from khmer_tpu_torch.ops import sketch_ops
+from khmer_tpu_torch.primes import get_n_primes_near_x
 from khmer_tpu_torch.storage import ByteStorage
 
 SIZES = (1009, 1013, 1019, 1021)
@@ -50,10 +50,9 @@ def test_sketch_update_match(kind):
 
     pspec = sketch_ops.SketchSpec(kind, SIZES)
     p_table = _t(table)
-    claim = sketch_ops.alloc_claim(pspec, "cpu")
     nu = torch.tensor([5], dtype=torch.int64)
     is_new, found, overflowed = sketch_ops.sketch_update(
-        pspec.geometry("cpu"), p_table, claim, nu,
+        pspec.geometry("cpu"), p_table, nu,
         _u64.as_tensor(hashes, "cpu"),
         torch.from_numpy(weights.view(np.int32)),
         track_bigcount=kind == "byte")
@@ -62,7 +61,6 @@ def test_sketch_update_match(kind):
                                   np.asarray(j_table))
     assert int(nu) == int(j_nu)
     np.testing.assert_array_equal(is_new.numpy(), np.asarray(aux["is_new"]))
-    assert bool((claim == CLAIM_FREE).all())
     if kind == "byte":
         want = np.asarray(aux["bigcount_hashes"])[
             np.asarray(aux["bigcount_valid"])]
@@ -150,3 +148,39 @@ def test_oxli_pack_unpack_match(kind, density):
     np.testing.assert_array_equal(
         back.numpy().view(np.uint32),
         np.asarray(jax_ops.unpack_oxli_bytes(spec, want)))
+
+
+def _mod_barrett(h, p, m):
+    """Python mirror of csrc/common.cuh:mod_barrett on u64 ints; also
+    returns the number of corrections it took."""
+    r = h - ((h * m) >> 64) * p
+    steps = 0
+    while r >= p:
+        r -= p
+        steps += 1
+    return r, steps
+
+
+@pytest.mark.parametrize("p", list(get_n_primes_near_x(4, 1e8))
+                         + [1, 2, 3, 4294967311, (1 << 61) - 1])
+def test_barrett_modulo(p):
+    """The kernels' reciprocal modulo equals % at the edges of each
+    residue class and at random hashes above 2**63, in at most two
+    corrections."""
+    (m,) = sketch_ops.barrett_recips([p])
+    assert m == ((1 << 64) - 1) // p
+    top = (1 << 64) - 1
+    hs = [0, p - 1, p, top, top - 1, 1 << 63]
+    for k in (1, 2, 3, 1000003, top // p - 1, top // p):
+        hs += [k * p - 1, k * p, k * p + 1]
+    rng = np.random.default_rng(p % 1000)
+    hs += [int(x) for x in rng.integers(1 << 63, top, 2000, dtype=np.uint64,
+                                        endpoint=True)]
+    for h in hs:
+        h &= top
+        r, steps = _mod_barrett(h, p, m)
+        assert r == h % p and steps <= 2, (h, p)
+    sizes = torch.tensor([p], dtype=torch.int64)
+    got = _u64.umod(_u64.as_tensor(np.array(hs[-2000:], np.uint64), "cpu"),
+                    sizes)
+    assert got.tolist() == [h % p for h in hs[-2000:]]
