@@ -12,15 +12,21 @@ Phases (any failure exits non-zero; nothing is caught):
      exact equality (all outputs are integers); CUDA-event times; K2
      also on a skewed batch (one hash on half the lanes: a hot
      partition), and each of K2's passes timed apart (torch.profiler);
+     K4 on a chunk's distinct hashes, all absent and every count 0, and
+     on a main-path window (the K2 batch's distinct hashes in first-
+     occurrence order, half of them tracked);
   4. main path: load-into-counting (-k 20 -N 4 -x 1e8) then
      abundance-dist-single and abundance-dist on synthetic 100-bp reads
      at 20x over a random 3.2 Mbase genome (bench.py's input), through
-     the port's script entry points.  Held against (a) the same run
-     through the plain versions on the card (.ct sha256, n_unique and
-     histograms identical) and (b) an exact numpy count of the
-     canonical k-mers (n_unique and the histogram total within the
-     collision bound of the table sizes).  Every kernel must have been
-     launched by this run; its peak device memory is printed.
+     the port's script entry points; then the overlay run,
+     load-into-counting and abundance-dist on a 2 Mbase file with one
+     read repeated 300 times (a .ct with a bigcount map).  Held against
+     (a) the same runs through the plain versions on the card (.ct
+     sha256, n_unique and histograms identical) and (b) an exact numpy
+     count of the canonical k-mers (n_unique within the collision bound
+     of the table sizes; both histogram totals equal to the distinct
+     count, which is within one membership window).  Every kernel must
+     have been launched by this run; its peak device memory is printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -43,6 +49,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 K = 20
 KS = (1, 16, 20, 31, 32)
 TABLE_SIZE = 1e8  # bins per table; 4 tables (bench.py's countgraph)
+WINDOW = 1 << 25  # abundance_distribution's membership window on the card
 SOURCES = {
     "hash2bit_canonical": ("khmer_tpu_torch/kernels/csrc/hash2bit.cu",
                            "khmer_tpu/ops/hashing.py:247"),
@@ -51,7 +58,7 @@ SOURCES = {
     "sketch_get": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
                    "khmer_tpu/ops/sketch_ops.py:223"),
     "abund_hist": ("khmer_tpu_torch/kernels/csrc/abund.cu",
-                   "khmer_tpu/hashtable.py:415"),
+                   "khmer_tpu/hashtable.py:358"),
     "bin_scatter_add": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
                         "benchmarks/explore_pallas_scatter.py:59"),
 }
@@ -138,12 +145,49 @@ def kernel_ms_by_name(fn, reps):
     return by_name
 
 
-def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
-                  scatter_bins=100_000_003, scatter_lanes=1 << 24):
+def k4_timed(keys, table, geom, track, t_geom, cap=65535):
+    """K4 against its plain version on one input, and its CUDA-event
+    times.  bytes: what the input needs moved -- each key once, the
+    tracking bins of each key up to its first zero, the main bins of
+    the new keys, the flags, and the histogram in and out."""
     import torch
 
     from khmer_tpu_torch import kernels
-    from khmer_tpu_torch.hashtable import CHUNK
+    from khmer_tpu_torch.kernels import plain
+
+    out = {}
+    for side, fn in (("kernel", kernels.abund_hist),
+                     ("plain", plain.abund_hist)):
+        hist = torch.zeros(65536, dtype=torch.int64, device=keys.device)
+        new = fn(keys, table, *geom, track, *t_geom, cap, hist)
+        out[side] = (hist, new)
+    err = max(max_abs_err(a, b) for a, b in zip(out["kernel"],
+                                                out["plain"]))
+    hist, new = out["plain"]
+    n, T = keys.numel(), t_geom[0].numel()
+    zero = plain.sketch_get(track, keys, *t_geom, 1) == 0
+    tb = track[plain._bins(keys, *t_geom[:2])] == 0
+    reads = torch.where(zero, tb.to(torch.int8).argmax(0) + 1, T)
+    del tb
+    n_new = int(new.sum())
+    nbytes = (n * (8 + 4) + int(reads.sum()) * 4 +
+              n_new * geom[0].numel() * 4 + 65536 * 8 * 2)
+    return dict(
+        err=err, n=n, new=n_new, bytes=nbytes,
+        ms=cuda_ms(lambda: kernels.abund_hist(keys, table, *geom, track,
+                                              *t_geom, cap, hist), 10),
+        plain_ms=cuda_ms(lambda: plain.abund_hist(keys, table, *geom,
+                                                  track, *t_geom, cap,
+                                                  hist), 3))
+
+
+def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
+                  scatter_bins=100_000_003, scatter_lanes=1 << 24,
+                  tracked=3_200_000):
+    import torch
+
+    from khmer_tpu_torch import _u64, kernels
+    from khmer_tpu_torch.hashtable import CHUNK, _first_of_runs
     from khmer_tpu_torch.kernels import plain
     from khmer_tpu_torch.ops.sketch_ops import (BIGCOUNT_LANES, SketchSpec,
                                                 alloc_table)
@@ -282,19 +326,44 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
            cuda_ms(lambda: plain.sketch_get(post, hashes, *geom, 65535), 3),
            lanes * (8 + 2) + distinct * 4 * T, gather_min_ms=gather_min)
 
-    # K4 on one chunk's sorted live hashes against the updated sketch
-    keys = torch.sort(chunk_h[chunk_w != 0]).values
-    n_distinct = int(torch.unique_consecutive(keys).numel())
-    hk = torch.zeros(65536, dtype=torch.int64, device=dev)
-    hp = torch.zeros_like(hk)
-    kernels.abund_hist(keys, post, *geom, 65535, hk)
-    plain.abund_hist(keys, post, *geom, 65535, hp)
-    record("abund_hist", max_abs_err(hk, hp),
-           cuda_ms(lambda: kernels.abund_hist(keys, post, *geom, 65535, hk),
-                   10),
-           cuda_ms(lambda: plain.abund_hist(keys, post, *geom, 65535, hp),
-                   3),
-           keys.numel() * 8 + n_distinct * 4 * T + 65536 * 8 * 2)
+    # K4 on two inputs.  (a) The chunk's live hashes, distinct, all absent
+    # from a tracking filter of 4 x 1e8 bins that holds `tracked` (3.2 M,
+    # the bench's distinct count) other keys,
+    # every count 0 (one hot histogram bin).  (b) A main-path window: the
+    # K2 batch's distinct hashes in order of first occurrence, counts
+    # spread by the batch, every other one of them in tracking.
+    t_spec = SketchSpec("bit", spec.tablesizes)
+    track = alloc_table(t_spec, dev)
+    hi, lo = torch.randint(0, 1 << 32, (2, tracked), generator=g,
+                           device=dev, dtype=torch.int64)
+    other = (hi << 32) | lo
+    del hi, lo
+    kernels.sketch_update(track, other, torch.ones_like(other,
+                                                        dtype=torch.int32),
+                          *geom, torch.zeros(1, dtype=torch.int64,
+                                             device=dev))
+    del other
+    keys_a = torch.unique(chunk_h[chunk_w != 0])
+    zero_main = alloc_table(spec, dev)
+    k4 = {"a": k4_timed(keys_a, zero_main, geom, track, geom)}
+    del zero_main, keys_a
+    keys_b, first = _first_of_runs(_u64.sort_key(hashes))
+    keys_b = _u64.sort_key(keys_b[torch.argsort(first)])
+    del first
+    track.zero_()
+    every_other = keys_b[::2].contiguous()
+    kernels.sketch_update(track, every_other, torch.ones_like(
+        every_other, dtype=torch.int32), *geom,
+        torch.zeros(1, dtype=torch.int64, device=dev))
+    del every_other
+    k4["b"] = k4_timed(keys_b, post, geom, track, geom)
+    del keys_b, track
+    a, b = k4["a"], k4["b"]
+    record("abund_hist", max(a["err"], b["err"]), a["ms"], a["plain_ms"],
+           a["bytes"], keys=a["n"], new=a["new"],
+           window_ms=b["ms"], window_plain_ms=b["plain_ms"],
+           window_bound_ms=bound_ms(b["bytes"]), window_keys=b["n"],
+           window_new=b["new"], window_max_abs_err=b["err"])
     del post, hashes, weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -374,17 +443,35 @@ def exact_kmers(seqs, k):
     return np.unique(np.minimum(f, r).ravel(), return_counts=True)
 
 
-def run_scripts(workdir, fa, dev):
-    """load-into-counting, abundance-dist-single and abundance-dist on
-    the card through the port's script entry points."""
-    import torch
+def make_overlay_reads(path, seed, n_reads=20000, genome_len=200_000,
+                       readlen=100, repeats=300):
+    """Random reads over a 200 kb genome (2 Mbases, two of the overlay
+    path's 2**20-base membership chunks), then one of them repeated 300
+    times: its k-mers pass 255, so load-into-counting writes a bigcount
+    map and abundance-dist on that .ct takes the overlay path."""
+    rng = np.random.default_rng(seed + 1)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    starts = rng.integers(0, genome_len - readlen, n_reads)
+    seqs = np.frombuffer(b"ACGT", np.uint8)[
+        genome[starts[:, None] + np.arange(readlen)]]
+    seqs = np.concatenate([seqs, np.repeat(seqs[:1], repeats, 0)])
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(">o{}\n{}\n".format(i, s.tobytes().decode()))
 
+
+def run_scripts(workdir, fa, overlay_fa, dev):
+    """load-into-counting, abundance-dist-single and abundance-dist on
+    the card through the port's script entry points, then the overlay
+    run: load-into-counting and abundance-dist on the small file whose
+    .ct carries a bigcount map."""
     from khmer_tpu_torch.scripts import (abundance_dist,
                                          abundance_dist_single,
                                          load_into_counting)
 
     os.makedirs(workdir)
     ct = os.path.join(workdir, "reads.ct")
+    overlay_ct = os.path.join(workdir, "overlay.ct")
     table = ["-k", str(K), "-N", "4", "-x", repr(TABLE_SIZE)]
     walls = {}
     for name, fn, argv in (
@@ -393,22 +480,34 @@ def run_scripts(workdir, fa, dev):
             ("abundance-dist-single", abundance_dist_single.main,
              ["-q"] + table + [fa, os.path.join(workdir, "single.hist")]),
             ("abundance-dist", abundance_dist.main,
-             ["-q", ct, fa, os.path.join(workdir, "dist.hist")])):
+             ["-q", ct, fa, os.path.join(workdir, "dist.hist")]),
+            ("overlay load-into-counting", load_into_counting.main,
+             ["-q", "-k", str(K), "-N", "4", "-x", "1e6", overlay_ct,
+              overlay_fa]),
+            ("overlay abundance-dist", abundance_dist.main,
+             ["-q", overlay_ct, overlay_fa,
+              os.path.join(workdir, "overlay.hist")])):
         t0 = time.perf_counter()
         fn(argv, device=dev)
         sync(dev)
         walls[name] = time.perf_counter() - t0
         gc.collect()
     out = {"walls": walls}
-    with open(ct, "rb") as f:
-        out["ct_sha256"] = hashlib.sha256(f.read()).hexdigest()
+    for key, path in (("ct_sha256", ct), ("overlay_ct_sha256", overlay_ct)):
+        with open(path, "rb") as f:
+            out[key] = hashlib.sha256(f.read()).hexdigest()
     with open(ct + ".info") as f:
         out["n_unique"] = int([ln for ln in f if ln.startswith(
             "Total number of unique k-mers:")][0].split(":")[1])
-    for h in ("single.hist", "dist.hist"):
+    for h in ("single.hist", "dist.hist", "overlay.hist"):
         with open(os.path.join(workdir, h), "rb") as f:
             out[h] = f.read()
     return out
+
+
+def hist_total(csv):
+    """Sum of the count column of an abundance-dist CSV."""
+    return sum(int(line.split(b",")[1]) for line in csv.splitlines()[1:])
 
 
 def sync(dev):
@@ -427,8 +526,10 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
     from khmer_tpu_torch.primes import get_n_primes_near_x
 
     fa = os.path.join(tmp, "reads.fa")
+    overlay_fa = os.path.join(tmp, "overlay.fa")
     t0 = time.perf_counter()
     seqs = make_reads(fa, seed, genome_mb)
+    make_overlay_reads(overlay_fa, seed)
     n_bases = seqs.size
     n_kmers = seqs.shape[0] * (seqs.shape[1] - K + 1)
     log("reads: {} x {} bp, {} bases, {} k-mers, {:.1f} s to write".format(
@@ -438,7 +539,7 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    got = run_scripts(os.path.join(tmp, "kernels"), fa, dev)
+    got = run_scripts(os.path.join(tmp, "kernels"), fa, overlay_fa, dev)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log("main path launches: {}".format(json.dumps(launches)))
@@ -452,33 +553,47 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
 
     with mock.patch.multiple(kernels, **{name: getattr(plain, name)
                                          for name in kernels.KERNELS}):
-        ref = run_scripts(os.path.join(tmp, "plain"), fa, dev)
+        ref = run_scripts(os.path.join(tmp, "plain"), fa, overlay_fa, dev)
     log("plain-version walls (s): {} [{}]".format(json.dumps(ref["walls"]),
                                                   card))
-    for key in ("ct_sha256", "n_unique", "single.hist", "dist.hist"):
+    for key in ("ct_sha256", "n_unique", "single.hist", "dist.hist",
+                "overlay_ct_sha256", "overlay.hist"):
         if got[key] != ref[key]:
             fail("main path differs from its plain run in " + key)
     log("kernels == plain on the card: .ct sha256 {}, n_unique {}, "
-        "histograms identical".format(got["ct_sha256"], got["n_unique"]))
+        "histograms identical; overlay run .ct sha256 {}, histogram "
+        "identical".format(got["ct_sha256"], got["n_unique"],
+                           got["overlay_ct_sha256"]))
+    big = [line for line in got["overlay.hist"].splitlines()[1:]
+           if int(line.split(b",")[0]) > 255]
+    if not big:
+        fail("the overlay run's histogram has no abundance above 255")
+    log("overlay run: histogram total {}, {} abundances above 255 from "
+        "the loaded bigcount map".format(hist_total(got["overlay.hist"]),
+                                         len(big)))
 
     t0 = time.perf_counter()
     uniq, counts = exact_kmers(seqs, K)
     distinct = int(uniq.size)
-    hist_total = sum(int(line.split(b",")[1]) for line in
-                     got["dist.hist"].splitlines()[1:])
+    totals = {h: hist_total(got[h]) for h in ("single.hist", "dist.hist")}
     occ = 1.0 - math.exp(-distinct / min(get_n_primes_near_x(4, TABLE_SIZE)))
     expected = distinct * occ ** 4
     bound = int(math.ceil(10 * expected)) + 10
     log("exact numpy count: {} distinct canonical k-mers ({:.1f} s); "
-        "n_unique {}; histogram total {}; collision bound {} (expected "
+        "n_unique {}; histogram totals {}; collision bound {} (expected "
         "{:.2f} colliding k-mers over 4 tables of ~{:.0e} bins)"
         .format(distinct, time.perf_counter() - t0, got["n_unique"],
-                hist_total, bound, expected, TABLE_SIZE))
-    for name, v in (("n_unique", got["n_unique"]),
-                    ("histogram total", hist_total)):
-        if not 0 <= distinct - v <= bound:
-            fail("{} {} is not within {} below the exact {}".format(
-                name, v, bound, distinct))
+                totals, bound, expected, TABLE_SIZE))
+    if not 0 <= distinct - got["n_unique"] <= bound:
+        fail("n_unique {} is not within {} below the exact {}".format(
+            got["n_unique"], bound, distinct))
+    # at most one membership window of distinct keys: each is tested
+    # against the empty tracking filter, so each counts once
+    if distinct <= WINDOW:
+        for name, v in totals.items():
+            if v != distinct:
+                fail("{} total {} is not the exact distinct count {}"
+                     .format(name, v, distinct))
     if int(counts.sum()) != n_kmers:
         fail("exact count lost k-mers")
 
@@ -492,9 +607,14 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
     t_consume = time.perf_counter() - t0
     tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
     sync(dev)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cg.abundance_distribution(fa, tracking)
     t_hist = time.perf_counter() - t0
+    log("histogram pass: peak device memory {} bytes above the {} bytes "
+        "of the two tables (the ledger, its sorts and a chunk) [{}]".format(
+            torch.cuda.max_memory_allocated() - held, held, card))
     if nu != got["n_unique"]:
         fail("timed consume gave another n_unique")
     for name, secs in (("consume", t_consume), ("histogram", t_hist)):
@@ -545,11 +665,14 @@ def device_share(name, fn, card):
         log("profile {}: wall {:.3f} s; device time not measured (the "
             "profiler saw no CUDA events)".format(name, wall))
         return
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the six longest, and every kernel of the port's own
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = top[:6] + [kv for kv in top[6:] if "_kernel" in kv[0] and
+                     not any(lib in kv[0] for lib in ("at::", "cub::"))]
     log("profile {}: wall {:.3f} s (profiled), device busy {:.3f} s = "
         "{:.1f}% of the wall, idle {:.1f}% [{}]; by name (ms): {}".format(
             name, wall, busy, 100 * busy / wall, 100 - 100 * busy / wall,
-            card, "; ".join("{} {:.2f}".format(n[:48], us / 1e3)
+            card, "; ".join("{} {:.3f}".format(n[:48], us / 1e3)
                             for n, us in top)))
 
 

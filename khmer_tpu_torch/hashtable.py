@@ -20,8 +20,37 @@ from khmer_tpu_torch.ops import encode as enc
 from khmer_tpu_torch.ops.hashing import chunk_hashes, forward_hash
 from khmer_tpu_torch.primes import get_n_primes_near_x
 
-# bases per device chunk; any size gives the same table and counts
+# bases per device chunk; any size gives the same table, counts and
+# histogram
 CHUNK = 1 << 23
+# bases per tracking-membership chunk of abundance_distribution on a
+# table loaded with a bigcount map (khmer_tpu/hashtable.py:53 CHUNK)
+OVERLAY_CHUNK = 1 << 20
+# the unsigned sort key of 2**64 - 1, which marks dead lanes
+_DEAD = (1 << 63) - 1
+
+
+def _first_of_runs(keys, pos=None):
+    """Stable-sort keys and keep the first lane of each run of equal
+    keys: (distinct keys ascending, the pos of each, or its index in
+    keys when pos is None)."""
+    keys, order = torch.sort(keys, stable=True)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    order = order[first]
+    return keys[first], order if pos is None else pos[order]
+
+
+def _combine(keys, firsts):
+    """Replace the ledger's pieces (lists of distinct keys and their
+    first positions, in stream order) by one piece: the earliest entry
+    of each key."""
+    k, f = torch.cat(keys), torch.cat(firsts)
+    keys.clear()
+    firsts.clear()
+    k, f = _first_of_runs(k, f)
+    keys.append(k)
+    firsts.append(f)
 
 
 class _FlatBatcher:
@@ -242,40 +271,121 @@ class Hashtable:
     # -- abundance distribution -------------------------------------------
 
     def abundance_distribution(self, parser_or_filename, tracking,
-                               chunk=CHUNK):
+                               chunk=CHUNK, window=None):
         """Histogram of k-mer counts over a file, deduplicated through the
         `tracking` filter (hashtable.cc:460-501).  Returns a list of
-        MAX_BIGCOUNT+1 entries.
+        MAX_BIGCOUNT+1 entries, those of khmer_tpu on either of its
+        paths (khmer_tpu/hashtable.py:1708-1770):
 
-        Per chunk: K1 hashes the windows, K3 tests them against tracking
-        as it stood before the chunk, the new ones are sorted, K4 adds
-        one histogram entry per distinct hash, and K2 adds them to
-        tracking."""
-        st = self.storage
-        ts = tracking.storage
+        * common path: the file's distinct hashes are tested against
+          tracking once per window of `window` distinct keys, in order of
+          first occurrence (_abund_windows).  `window` defaults to
+          khmer_tpu's flush_slice() of the device: 2**23 on the CPU,
+          2**25 on the card.  The result does not depend on `chunk`;
+        * a bigcount map loaded from disk: membership is tested per
+          OVERLAY_CHUNK bases of the stream, khmer_tpu's CHUNK, and
+          saturated counts are overlaid from the map (_abund_overlay).
+        """
         hist = torch.zeros(MAX_BIGCOUNT + 1, dtype=torch.int64,
                            device=self.device)
-        cap = st.read_cap()
-        # a bigcount map loaded from disk overlays saturated reads
-        overlay = st.get_use_bigcount() and bool(st.bigcounts)
-        fix = np.zeros(MAX_BIGCOUNT + 1, np.int64)
+        if self.storage.get_use_bigcount() and self.storage.bigcounts:
+            fix = self._abund_overlay(parser_or_filename, tracking, hist)
+        else:
+            if window is None:
+                window = 1 << (23 if self.device.type == "cpu" else 25)
+            self._abund_windows(parser_or_filename, tracking, hist, chunk,
+                                window)
+            fix = 0
+        return [int(x) for x in hist.cpu().numpy() + fix]
+
+    def _first_occurrences(self, parser_or_filename, chunk):
+        """The distinct live hashes of a file, each with its first stream
+        position: (unsigned sort keys, int64 positions), sorted by key.
+
+        Per chunk the live lanes are deduplicated (a stable sort keeps
+        the earliest lane of each run) and appended to a ledger of
+        pieces in stream order; the pieces are combined, by a stable
+        sort that keeps the earliest piece's entry, whenever they hold
+        twice the entries of the last combine, and at the end.  So the
+        ledger stays within a few times the distinct count, and each
+        entry is sorted a bounded number of times on average."""
+        keys, firsts = [], []
+        held = kept = 0  # entries in the pieces, and after the last combine
+        base = 0
         for codes, mask in self._chunks(parser_or_filename, chunk,
                                         _StreamStats()):
+            k, f = self._chunk_firsts(codes, mask)
+            keys.append(k)
+            firsts.append(f + base)
+            base += codes.numel()
+            held += k.numel()
+            del k, f
+            if len(keys) > 1 and held > 2 * kept:
+                _combine(keys, firsts)
+                held = kept = keys[0].numel()
+        if not keys:
+            empty = torch.empty(0, dtype=torch.int64, device=self.device)
+            return empty, empty
+        if len(keys) > 1:
+            _combine(keys, firsts)
+        return keys[0], firsts[0]
+
+    def _chunk_firsts(self, codes, mask):
+        """The distinct live hashes of one chunk as unsigned sort keys,
+        ascending, each with the lane of its first occurrence."""
+        h, w = chunk_hashes(codes, mask, self._ksize)
+        # dead lanes sort last under the largest key, which no canonical
+        # hash takes (min(fwd, rc) < 2**64 - 1)
+        k, lane = _first_of_runs(torch.where(w != 0, _u64.sort_key(h), _DEAD))
+        live = k != _DEAD
+        return k[live], lane[live]
+
+    def _abund_windows(self, parser_or_filename, tracking, hist, chunk,
+                       window):
+        """khmer_tpu's deferred abundance flush (ops/deferred.py:748-766,
+        hashtable.py:_make_abund_flush_fn): the distinct keys, ordered by
+        first occurrence when there are more than `window`, pass in
+        windows of `window` keys through K4 (membership against tracking
+        as it stood before the window, count, histogram) and K2 (the
+        window's new keys into tracking)."""
+        st, ts = self.storage, tracking.storage
+        keys, firsts = self._first_occurrences(parser_or_filename, chunk)
+        if keys.numel() > window:
+            keys = keys[torch.argsort(firsts)]
+        del firsts
+        keys = _u64.sort_key(keys)  # back to hash bit patterns
+        cap = st.read_cap()
+        for off in range(0, keys.numel(), window):
+            kw = keys[off: off + window]
+            new = kernels.abund_hist(kw, st.table, *st._geom, ts.table,
+                                     *ts._geom, cap, hist)
+            ts.add_lanes(kw, new)
+
+    def _abund_overlay(self, parser_or_filename, tracking, hist):
+        """khmer_tpu's path for a table loaded with a bigcount map
+        (hashtable.py:1725-1755): per OVERLAY_CHUNK bases, K4 over the
+        chunk's sorted live hashes against tracking as it stood before
+        the chunk, K2 adds the new ones to tracking, and K3 finds the new
+        hashes whose count is saturated, which the loaded map corrects on
+        the host.  Returns the correction, an int64 numpy histogram."""
+        st, ts = self.storage, tracking.storage
+        cap = st.read_cap()
+        fix = np.zeros(MAX_BIGCOUNT + 1, np.int64)
+        for codes, mask in self._chunks(parser_or_filename, OVERLAY_CHUNK,
+                                        _StreamStats()):
             h, w = chunk_hashes(codes, mask, self._ksize)
-            member = ts.get_lanes(h).to(torch.int32)
-            keys = torch.sort(h[(w != 0) & (member == 0)]).values
-            kernels.abund_hist(keys, st.table, *st._geom, cap, hist)
-            ts.add_lanes(keys, torch.ones_like(keys, dtype=torch.int32))
-            if overlay:
-                uniq = torch.unique_consecutive(keys)
-                sat = st.get_lanes(uniq).to(torch.int32) == MAX_KCOUNT
-                for hv in _u64.to_numpy(uniq[sat]):
-                    v = st.bigcounts.get(int(hv))
-                    if v is not None:
-                        fix[MAX_KCOUNT] -= 1
-                        fix[v] += 1
-        out = hist.cpu().numpy() + fix
-        return [int(x) for x in out]
+            keys = torch.sort(h[w != 0]).values
+            new = kernels.abund_hist(keys, st.table, *st._geom, ts.table,
+                                     *ts._geom, cap, hist)
+            ts.add_lanes(keys, new)
+            uniq = keys[new != 0]
+            sat = st.get_lanes(uniq).to(torch.int32) == MAX_KCOUNT
+            for hv in _u64.to_numpy(uniq[sat]):
+                v = st.bigcounts.get(int(hv))
+                if v is not None:
+                    fix[MAX_KCOUNT] -= 1
+                    fix[v] += 1
+        return fix
 
     # -- save/load --------------------------------------------------------
 

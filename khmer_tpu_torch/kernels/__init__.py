@@ -161,24 +161,38 @@ def sketch_get(table, hashes, sizes, offsets, recips, cap):
     return out
 
 
-def abund_hist(keys, table, sizes, offsets, recips, cap, hist):
-    """K4: for the first lane of every run of equal hashes in the sorted
-    keys (int64 [n]), hist[min(count, cap)] += 1, where count is the
-    sketch's min over tables.  hist is int64 [65536], updated in place."""
+def abund_hist(keys, table, sizes, offsets, recips, track, t_sizes,
+               t_offsets, t_recips, cap, hist):
+    """K4: one membership window of abundance-dist.  Lane i of keys
+    (int64 [n]) counts iff it starts a run of equal keys (i == 0 or
+    keys[i-1] != keys[i]) and its min over the tracking sketch's tables
+    is 0; each counted lane adds one to hist[min(count, cap)], where
+    count is its min over the main sketch's tables.  hist is int64
+    [65536], updated in place; returns the int32 [n] flags of the
+    counted lanes (the weights with which the caller adds the keys to
+    tracking).  Distinct keys in any order, or sorted keys with
+    duplicates."""
     dev = table.device
     _check_geometry(table, sizes, offsets, recips)
+    _check_geometry(track, t_sizes, t_offsets, t_recips)
     _check("keys", keys, torch.int64, dev)
     _check("hist", hist, torch.int64, dev)
+    _check("track", track, torch.int32, dev)
     if hist.numel() <= cap:
         raise ValueError("abund_hist: histogram shorter than cap + 1")
     if dev.type != "cuda":
-        return plain.abund_hist(keys, table, sizes, offsets, recips, cap,
-                                hist)
+        return plain.abund_hist(keys, table, sizes, offsets, recips, track,
+                                t_sizes, t_offsets, t_recips, cap, hist)
     n = keys.numel()
+    new = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         _launch("abund_hist", keys.data_ptr(), n, table.data_ptr(),
                 sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
-                recips.data_ptr(), int(cap), hist.data_ptr())
+                recips.data_ptr(), track.data_ptr(), t_sizes.numel(),
+                t_sizes.data_ptr(), t_offsets.data_ptr(),
+                t_recips.data_ptr(), int(cap), hist.data_ptr(),
+                new.data_ptr())
+    return new
 
 
 def bin_scatter_add(table, idx, vals):

@@ -31,7 +31,8 @@ SIGNATURES = {
                             _P, _P, _P, _I, _P, _P),
     "khmer_sketch_get": (_P, _P, _LL, _I, _P, _P, _P, _U, _P, _P),
     "khmer_bin_scatter_add": (_P, _LL, _P, _P, _LL, _P, _P),
-    "khmer_abund_hist": (_P, _LL, _P, _I, _P, _P, _P, _U, _P, _P),
+    "khmer_abund_hist": (_P, _LL, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                         _U, _P, _P, _P),
 }
 # C helpers that launch nothing: name -> (argument types, result type)
 HELPERS = {

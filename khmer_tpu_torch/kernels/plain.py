@@ -80,16 +80,18 @@ def sketch_get(table, hashes, sizes, offsets, recips, cap):
     return tot.clamp(max=cap).to(torch.uint16)
 
 
-def abund_hist(keys, table, sizes, offsets, recips, cap, hist):
-    """hist[min(count, cap)] += 1 for the first lane of every run of
-    equal hashes in the sorted keys."""
-    if keys.numel() == 0:
-        return
-    first = torch.ones_like(keys, dtype=torch.bool)
-    first[1:] = keys[1:] != keys[:-1]
-    counts = sketch_get(table, keys[first], sizes, offsets, recips, cap)
+def abund_hist(keys, table, sizes, offsets, recips, track, t_sizes,
+               t_offsets, t_recips, cap, hist):
+    """hist[min(count, cap)] += 1 for every lane that starts a run of
+    equal keys and is absent from the tracking sketch (min over its
+    tables 0); returns those lanes' int32 flags."""
+    new = torch.ones_like(keys, dtype=torch.bool)
+    new[1:] = keys[1:] != keys[:-1]
+    new &= sketch_get(track, keys, t_sizes, t_offsets, t_recips, 1) == 0
+    counts = sketch_get(table, keys[new], sizes, offsets, recips, cap)
     counts = counts.to(torch.int64)
     hist.index_add_(0, counts, torch.ones_like(counts))
+    return new.to(torch.int32)
 
 
 def bin_scatter_add(table, idx, vals):

@@ -6,8 +6,8 @@ that counts pass 255 into the bigcount section).
 Integer data throughout: the tolerance is exact equality.  The tracking
 tables are 1e6 bins x 4, so with ~20k distinct k-mers a Bloom false
 positive is improbable (about 20e3 * (20e3/1e6)**4 = 3e-3 expected);
-khmer_tpu tests tracking membership per deferred window and the port
-per chunk, and only such a false positive could tell the two apart."""
+tests/test_torch_abundance.py holds the histogram to khmer_tpu's where
+tracking false positives are frequent."""
 
 import numpy as np
 import pytest

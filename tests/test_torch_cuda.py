@@ -207,8 +207,10 @@ def test_barrett_bins_on_card(dev):
         keys = torch.sort(h).values
         hk = torch.zeros(65536, dtype=torch.int64, device=dev)
         hp = torch.zeros_like(hk)
-        kernels.abund_hist(keys, table, *geom, 65535, hk)
-        plain.abund_hist(keys, tp, *geom, 65535, hp)
+        track = torch.zeros_like(table)
+        assert torch.equal(
+            kernels.abund_hist(keys, table, *geom, track, *geom, 65535, hk),
+            plain.abund_hist(keys, tp, *geom, track, *geom, 65535, hp))
         assert torch.equal(hk, hp)
 
 
@@ -224,17 +226,106 @@ def test_sketch_get(dev, cap):
                                                    cap))
 
 
-def test_abund_hist(dev):
-    rng = np.random.default_rng(4)
-    table = _table(rng, SIZES, 400)
-    keys = torch.sort(_u64.as_tensor(_hashes(rng, 4000, 900), "cpu")).values
-    geom = SketchSpec("byte", SIZES).geometry("cpu")
-    hk = torch.zeros(65536, dtype=torch.int64, device=dev)
-    hp = torch.zeros(65536, dtype=torch.int64)
-    kernels.abund_hist(keys.to(dev), table.to(dev),
-                       *[g.to(dev) for g in geom], 255, hk)
-    plain.abund_hist(keys, table, *geom, 255, hp)
-    assert torch.equal(hk.cpu(), hp) and int(hp[0]) > 0
+def _track(rng, sizes, density):
+    """A tracking table whose bins are set with the given probability."""
+    t = (rng.random(sum(sizes) + 1) < density).astype(np.uint32)
+    return torch.from_numpy(t.view(np.int32))
+
+
+def _k4_both(dev, keys, msizes, main, tsizes, track, cap):
+    """K4 on the card and its plain version on the CPU from the same
+    inputs; asserts equal histograms and flags, returns the plain ones."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        hist = torch.zeros(65536, dtype=torch.int64, device=d)
+        before = kernels.LAUNCHES["abund_hist"]
+        new = kernels.abund_hist(
+            keys.to(d), main.to(d), *SketchSpec("byte", msizes).geometry(d),
+            track.to(d), *SketchSpec("bit", tsizes).geometry(d), cap, hist)
+        if d.type == "cuda":
+            assert kernels.LAUNCHES["abund_hist"] == before + (
+                1 if keys.numel() else 0)
+        out.append((hist.cpu(), new.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    return out[1]
+
+
+def _primes(T):
+    return tuple(get_n_primes_near_x(T, 1009))
+
+
+def _distinct(rng, n):
+    keys = np.unique(rng.integers(0, 2 ** 64, n, dtype=np.uint64))
+    rng.shuffle(keys)
+    return _u64.as_tensor(keys, "cpu")
+
+
+# name -> (main tables, tracking tables, cap, tracking density); the main
+# bins are random in [0, 400) with half of them 0 unless test_abund_hist
+# says otherwise
+K4_CASES = {
+    "sorted-duplicates": (SIZES, SIZES, 255, 0.0),
+    "all-counts-zero": (_primes(4), _primes(4), 65535, 0.0),
+    "shared-range-edge": (_primes(4), _primes(4), 65535, 0.0),
+    "cap-1": (_primes(4), _primes(4), 1, 0.5),
+    "cap-255": (_primes(4), _primes(4), 255, 0.5),
+    "cap-65535": (_primes(4), _primes(4), 65535, 0.5),
+    "one-table": (_primes(1), _primes(1), 65535, 0.5),
+    "three-tables": (_primes(3), _primes(4), 255, 0.8),
+    "four-tables": (_primes(4), _primes(3), 255, 0.8),
+    "32-tables": (_primes(32), _primes(32), 65535, 0.98),
+    "empty": (_primes(4), _primes(4), 255, 0.5),
+    "dense-tracking": (_primes(4), _primes(4), 65535, 0.85),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_abund_hist(dev, case):
+    """K4 against its plain version: one hot histogram bin (every count
+    0), counts at and above the shared sub-histogram's 4096 bins, caps
+    255, 65535 and 1, T = 1, 3, 4 and 32, empty keys, sorted keys with
+    duplicates (the overlay path) and a tracking filter dense enough for
+    false positives (about half the keys members)."""
+    msizes, tsizes, cap, density = K4_CASES[case]
+    rng = np.random.default_rng(len(case))
+    main = _table(rng, msizes, 400)
+    keys = _distinct(rng, 50000)
+    if case == "sorted-duplicates":
+        keys = torch.sort(_u64.as_tensor(_hashes(rng, 4000, 900),
+                                         "cpu")).values
+    elif case == "all-counts-zero":
+        main.zero_()
+        keys = _distinct(rng, 1 << 20)
+    elif case == "shared-range-edge":
+        main = torch.from_numpy(rng.integers(
+            4090, 4102, main.numel()).astype(np.int32))
+        main[:main.numel() // 3] = 70000
+    elif case.startswith("cap-"):
+        # low counts and counts past 65535 (where the four bins all are)
+        main = torch.from_numpy(np.where(
+            rng.random(main.numel()) < 0.5,
+            rng.integers(0, 300, main.numel()),
+            rng.integers(60000, 70000, main.numel())).astype(np.int32))
+    elif case == "32-tables":
+        main = torch.from_numpy(rng.integers(
+            1, 400, main.numel()).astype(np.int32))
+    elif case == "empty":
+        keys = keys[:0]
+    hist, new = _k4_both(dev, keys, msizes, main, tsizes,
+                         _track(rng, tsizes, density), cap)
+    n_new = int(new.sum())
+    assert int(hist.sum()) == n_new
+    if case == "all-counts-zero":
+        assert int(hist[0]) == keys.numel()
+    elif case == "shared-range-edge":
+        assert int(hist[:4096].sum()) > 0 and int(hist[4096:].sum()) > 0
+    elif case == "dense-tracking":
+        assert 0.3 < n_new / keys.numel() < 0.7
+    elif case == "sorted-duplicates":
+        assert n_new == torch.unique(keys).numel() and int(hist[0]) > 0
+    elif case == "empty":
+        assert new.numel() == 0
 
 
 def test_bin_scatter_add_any_bins(dev):
@@ -339,3 +430,32 @@ def test_main_path_small_on_card(dev, tmp_path):
             out.append((n, cg.n_unique_kmers(), f.read(), hist))
     assert out[0] == out[1]
     assert sum(out[0][3][256:]) > 0
+
+
+@pytest.mark.parametrize("path", ["windows", "overlay"])
+def test_abundance_paths_on_card(dev, tmp_path, path):
+    """abundance_distribution on the card equals the CPU run in windows
+    of 2**12 distinct keys, and on a table loaded with a bigcount map
+    (tracking membership per 2**20 bases of a 1.1 Mbase file)."""
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, seed=8, n_reads=11000)
+    ct = str(tmp_path / "reads.ct")
+    if path == "overlay":
+        cg = Countgraph(20, 50021, 4, device="cpu")
+        cg.set_use_bigcount(True)
+        cg.consume_seqfile(fa)
+        cg.save(ct)
+    out = []
+    for d in (dev, "cpu"):
+        if path == "overlay":
+            cg = Countgraph.load(ct, device=d)
+            assert cg.storage.bigcounts
+            kwargs = {}
+        else:
+            cg = Countgraph(20, 50021, 4, device=d)
+            cg.consume_seqfile(fa)
+            kwargs = {"window": 1 << 12}
+        track = Nodegraph(20, 1, 1, primes=cg.hashsizes(), device=d)
+        out.append((cg.abundance_distribution(fa, track, **kwargs),
+                    track.n_unique_kmers()))
+    assert out[0] == out[1]
