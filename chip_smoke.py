@@ -9,12 +9,14 @@ Phases (any failure exits non-zero; nothing is caught):
      loader (g++) from the sources in the checkout;
   3. kernels: every kernel of the main path against its plain PyTorch
      version on the card, from the seed, at the main path's shapes;
-     exact equality (all outputs are integers); CUDA-event times; K2
-     also on a skewed batch (one hash on half the lanes: a hot
-     partition), and each of K2's passes timed apart (torch.profiler);
-     K4 on a chunk's distinct hashes, all absent and every count 0, and
-     on a main-path window (the K2 batch's distinct hashes in first-
-     occurrence order, half of them tracked);
+     exact equality (all outputs are integers); CUDA-event times; K1
+     also timed at k = 1 and 32; K2 also on a skewed batch (one hash on
+     half the lanes: a hot partition), and each of K2's passes timed
+     apart (torch.profiler); K3 also on 2**23 distinct keys, with the
+     random 32-byte sectors it reads a second; K4 on a chunk's distinct
+     hashes, all absent and every count 0, and on a main-path window
+     (the K2 batch's distinct hashes in first-occurrence order, half of
+     them tracked);
   4. main path: load-into-counting (-k 20 -N 4 -x 1e8) then
      abundance-dist-single and abundance-dist on synthetic 100-bp reads
      at 20x over a random 3.2 Mbase genome (bench.py's input), through
@@ -47,7 +49,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 K = 20
-KS = (1, 16, 20, 31, 32)
+KS = (1, 2, 15, 16, 17, 20, 31, 32)
 TABLE_SIZE = 1e8  # bins per table; 4 tables (bench.py's countgraph)
 WINDOW = 1 << 25  # abundance_distribution's membership window on the card
 SOURCES = {
@@ -170,12 +172,14 @@ def k4_timed(keys, table, geom, track, t_geom, cap=65535):
     reads = torch.where(zero, tb.to(torch.int8).argmax(0) + 1, T)
     del tb
     n_new = int(new.sum())
-    nbytes = (n * (8 + 4) + int(reads.sum()) * 4 +
-              n_new * geom[0].numel() * 4 + 65536 * 8 * 2)
+    # the random bins it reads: tracking up to a first zero, main if new
+    sectors = int(reads.sum()) + n_new * geom[0].numel()
+    nbytes = n * (8 + 4) + sectors * 4 + 65536 * 8 * 2
+    ms = cuda_ms(lambda: kernels.abund_hist(keys, table, *geom, track,
+                                            *t_geom, cap, hist), 10)
     return dict(
-        err=err, n=n, new=n_new, bytes=nbytes,
-        ms=cuda_ms(lambda: kernels.abund_hist(keys, table, *geom, track,
-                                              *t_geom, cap, hist), 10),
+        err=err, n=n, new=n_new, bytes=nbytes, ms=ms,
+        sectors_per_s=sectors / (ms * 1e-3),
         plain_ms=cuda_ms(lambda: plain.abund_hist(keys, table, *geom,
                                                   track, *t_geom, cap,
                                                   hist), 3))
@@ -223,10 +227,12 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
         err = max(err, max_abs_err(h, ph), max_abs_err(w, pw))
         if k == K:
             chunk_h, chunk_w = h, w
-    record("hash2bit_canonical", err,
-           cuda_ms(lambda: kernels.hash2bit_canonical(codes, mask, K), 20),
+    # the time at k = 1 and 32 beside k = 20 shows whether it grows with k
+    by_k = {k: cuda_ms(lambda: kernels.hash2bit_canonical(codes, mask, k),
+                       20) for k in (1, K, 32)}
+    record("hash2bit_canonical", err, by_k[K],
            cuda_ms(lambda: plain.hash2bit_canonical(codes, mask, K), 3),
-           n * (1 + 1 + 8 + 4))
+           n * (1 + 1 + 8 + 4), k1_ms=by_k[1], k32_ms=by_k[32])
 
     # K2 on a pre-filled 4 x 1e8 sketch with a 2**23-lane batch full of
     # duplicates (about 8 lanes per distinct hash) and masked lanes, and
@@ -308,23 +314,51 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
            skewed_ms=skew_ms, skewed_max_abs_err=err_skew)
     del table, skewed
 
-    # K3 under each read cap, on the updated sketch.  No one PyTorch call
-    # computes K3's function; the gather of precomputed bins and its min
-    # is printed beside it as gather_min_ms.
-    err = 0
-    for cap in (255, 65535, 1):
-        err = max(err, max_abs_err(
-            kernels.sketch_get(post, hashes, *geom, cap),
-            plain.sketch_get(post, hashes, *geom, cap)))
-    distinct = int(torch.unique(hashes).numel())
-    bins = plain._bins(hashes, *geom[:2])
-    gather_min = cuda_ms(lambda: torch.amin(post[bins], dim=0), 5)
-    del bins
-    record("sketch_get", err,
-           cuda_ms(lambda: kernels.sketch_get(post, hashes, *geom, 65535),
-                   10),
-           cuda_ms(lambda: plain.sketch_get(post, hashes, *geom, 65535), 3),
-           lanes * (8 + 2) + distinct * 4 * T, gather_min_ms=gather_min)
+    # K3 under each read cap, on the updated sketch, on two inputs: the
+    # K2 batch (about 8 lanes per distinct hash, so part of the table's
+    # sectors come from L2) and 2**23 distinct keys (each of its 4 bins a
+    # random 32-byte sector from device memory: the shape of per-read
+    # count reads).  No one PyTorch call computes K3's function; the
+    # gather of precomputed bins and its min is printed beside it as
+    # gather_min_ms (bins [T, n], table by table, as K3's plain version
+    # orders them) and keymajor_gather_min_ms (bins [n, T], key by key,
+    # as K3 reads them).
+    hi, lo = torch.randint(0, 1 << 32, (2, lanes), generator=g, device=dev,
+                           dtype=torch.int64)
+    k3 = {}
+    for name, keys in (("batch", hashes), ("distinct", (hi << 32) | lo)):
+        err = 0
+        for cap in (255, 65535, 1):
+            err = max(err, max_abs_err(
+                kernels.sketch_get(post, keys, *geom, cap),
+                plain.sketch_get(post, keys, *geom, cap)))
+        n_keys = int(torch.unique(keys).numel())
+        bins = plain._bins(keys, *geom[:2])
+        ms = cuda_ms(lambda: kernels.sketch_get(post, keys, *geom, 65535),
+                     10)
+        k3[name] = dict(
+            err=err, n=n_keys, ms=ms,
+            plain_ms=cuda_ms(lambda: plain.sketch_get(post, keys, *geom,
+                                                      65535), 3),
+            gather_min_ms=cuda_ms(lambda: torch.amin(post[bins], dim=0), 5),
+            bytes=lanes * (8 + 2) + n_keys * 4 * T,
+            sectors_per_s=lanes * T / (ms * 1e-3))
+        bins = bins.T.contiguous()
+        k3[name]["keymajor_gather_min_ms"] = cuda_ms(
+            lambda: torch.amin(post[bins], dim=1), 5)
+        del bins
+    del hi, lo
+    a, b = k3["batch"], k3["distinct"]
+    record("sketch_get", max(a["err"], b["err"]), a["ms"], a["plain_ms"],
+           a["bytes"], gather_min_ms=a["gather_min_ms"],
+           keymajor_gather_min_ms=a["keymajor_gather_min_ms"],
+           sectors_per_s=a["sectors_per_s"], distinct_ms=b["ms"],
+           distinct_plain_ms=b["plain_ms"],
+           distinct_bound_ms=bound_ms(b["bytes"]), distinct_keys=b["n"],
+           distinct_gather_min_ms=b["gather_min_ms"],
+           distinct_keymajor_gather_min_ms=b["keymajor_gather_min_ms"],
+           distinct_sectors_per_s=b["sectors_per_s"],
+           distinct_max_abs_err=b["err"])
 
     # K4 on two inputs.  (a) The chunk's live hashes, distinct, all absent
     # from a tracking filter of 4 x 1e8 bins that holds `tracked` (3.2 M,
@@ -361,6 +395,8 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
     a, b = k4["a"], k4["b"]
     record("abund_hist", max(a["err"], b["err"]), a["ms"], a["plain_ms"],
            a["bytes"], keys=a["n"], new=a["new"],
+           sectors_per_s=a["sectors_per_s"],
+           window_sectors_per_s=b["sectors_per_s"],
            window_ms=b["ms"], window_plain_ms=b["plain_ms"],
            window_bound_ms=bound_ms(b["bytes"]), window_keys=b["n"],
            window_new=b["new"], window_max_abs_err=b["err"])

@@ -7,7 +7,9 @@ chunk, kernel K1 hashes every window in stream order and kernel K2 adds
 the lanes to the sketch with the exact claim rule.  One K2 update per
 chunk, in stream order, is exact (each chunk's pre-gather sees the adds
 of every earlier chunk), so the deferred sort-and-combine counter of
-khmer_tpu/ops/deferred.py is not needed for parity.
+khmer_tpu/ops/deferred.py is not needed for the counts.  Its cycle and
+ledger bookkeeping does decide abundance_distribution's membership
+windows, so _DeferSchedule mirrors it there.
 """
 
 import numpy as np
@@ -28,6 +30,23 @@ CHUNK = 1 << 23
 OVERLAY_CHUNK = 1 << 20
 # the unsigned sort key of 2**64 - 1, which marks dead lanes
 _DEAD = (1 << 63) - 1
+# khmer_tpu's deferred counter in its own units: a chunk is cut into rows
+# of ROW_PAYLOAD bases (khmer_tpu/hashtable.py:54), and no buffer or
+# bucket is smaller than MIN_BUCKET lanes (ops/deferred.py:113)
+ROW_PAYLOAD = 1 << 14
+MIN_BUCKET = 1 << 14
+
+
+def _pow2(n):
+    """The least power of two >= n (1 for n <= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _lane_count(k, bases):
+    """Lanes of khmer_tpu's phase-major hash of a chunk of `bases`
+    (hashtable.py:_chunk_lane_count): 16 phases x rows x the words of a
+    row of ROW_PAYLOAD + k - 1 codes."""
+    return 16 * (bases // ROW_PAYLOAD) * -(-(ROW_PAYLOAD + k - 1) // 16)
 
 
 def _first_of_runs(keys, pos=None):
@@ -41,16 +60,96 @@ def _first_of_runs(keys, pos=None):
     return keys[first], order if pos is None else pos[order]
 
 
-def _combine(keys, firsts):
-    """Replace the ledger's pieces (lists of distinct keys and their
-    first positions, in stream order) by one piece: the earliest entry
-    of each key."""
-    k, f = torch.cat(keys), torch.cat(firsts)
-    keys.clear()
-    firsts.clear()
-    k, f = _first_of_runs(k, f)
-    keys.append(k)
-    firsts.append(f)
+class _Ledger:
+    """Distinct keys with their first stream positions, held as pieces
+    in stream order.  The pieces are combined (a stable sort that keeps
+    each key's earliest entry) whenever they hold twice the entries of
+    the last combine, so the ledger stays within a few times its
+    distinct count and each entry is sorted a bounded number of times
+    on average."""
+
+    def __init__(self):
+        self.keys, self.firsts = [], []
+        self.held = self.kept = 0
+
+    def add(self, keys, firsts):
+        self.keys.append(keys)
+        self.firsts.append(firsts)
+        self.held += keys.numel()
+        if len(self.keys) > 1 and self.held > 2 * self.kept:
+            self._combine()
+            self.held = self.kept = self.keys[0].numel()
+
+    def _combine(self):
+        k, f = torch.cat(self.keys), torch.cat(self.firsts)
+        self.keys.clear()
+        self.firsts.clear()
+        k, f = _first_of_runs(k, f)
+        self.keys.append(k)
+        self.firsts.append(f)
+
+    def take(self):
+        """(unsigned sort keys ascending, first positions), or None when
+        empty; the ledger is left empty."""
+        if not self.keys:
+            return None
+        if len(self.keys) > 1:
+            self._combine()
+        out = self.keys[0], self.firsts[0]
+        self.__init__()
+        return out
+
+
+class _DeferSchedule:
+    """The bookkeeping of khmer_tpu's DeferredCounter
+    (ops/deferred.py:591-721) without its buffers: which chunks close a
+    cycle of the append buffer, and when a cycle's distinct lanes would
+    push the ledger past its budget, so that the ledger is flushed as a
+    segment first (_ledger_overflow).  Lanes are khmer_tpu's
+    (_lane_count)."""
+
+    def __init__(self, chunk_lanes, max_cap):
+        self.max_cap = _pow2(max(int(max_cap), 2 * chunk_lanes))
+        self.max_ledger = 4 * self.max_cap
+        self.cap = self.fill = self.ledger = 0
+
+    def append(self, lanes):
+        """Account one chunk of `lanes` (_make_room).  Returns the merge
+        bucket of the cycle that the chunks before it close, or 0."""
+        if self.cap == 0:
+            self.cap = max(min(max(4 * _pow2(lanes), MIN_BUCKET),
+                               self.max_cap), _pow2(lanes))
+        bucket = 0
+        if self.fill + lanes > self.cap:
+            if self.cap < self.max_cap:
+                self.cap = max(self.cap, min(max(2 * self.cap,
+                                                 _pow2(self.fill + lanes)),
+                                             self.max_cap))
+            if self.fill + lanes > self.cap:
+                bucket = self.finish()
+        self.fill += lanes
+        return bucket
+
+    def finish(self):
+        """Close the open cycle (_cycle); returns its bucket, or 0."""
+        bucket = 0
+        if self.fill:
+            bucket = min(max(_pow2(self.fill), MIN_BUCKET), self.cap)
+        self.fill = 0
+        return bucket
+
+    def overflows(self, n, bucket):
+        """Account a closed cycle's n distinct lanes (_resolve_cycle):
+        True when its pow2 block would pass the ledger's budget, so the
+        ledger is flushed before the block starts a new one."""
+        if n == 0:
+            return False
+        block = min(_pow2(n), bucket)
+        over = self.ledger + block > self.max_ledger
+        if over:
+            self.ledger = 0
+        self.ledger += block
+        return over
 
 
 class _FlatBatcher:
@@ -271,17 +370,26 @@ class Hashtable:
     # -- abundance distribution -------------------------------------------
 
     def abundance_distribution(self, parser_or_filename, tracking,
-                               chunk=CHUNK, window=None):
+                               chunk=None, window=None, max_cap=None):
         """Histogram of k-mer counts over a file, deduplicated through the
         `tracking` filter (hashtable.cc:460-501).  Returns a list of
         MAX_BIGCOUNT+1 entries, those of khmer_tpu on either of its
         paths (khmer_tpu/hashtable.py:1708-1770):
 
-        * common path: the file's distinct hashes are tested against
-          tracking once per window of `window` distinct keys, in order of
-          first occurrence (_abund_windows).  `window` defaults to
-          khmer_tpu's flush_slice() of the device: 2**23 on the CPU,
-          2**25 on the card.  The result does not depend on `chunk`;
+        * common path (_abund_windows): khmer_tpu's deferred counter
+          gathers the file's distinct hashes cycle by cycle into a
+          ledger, which it flushes as a segment when the next cycle
+          would pass its budget, and at the end; a segment's distinct
+          hashes are tested against tracking once per window of `window`
+          keys, in order of first occurrence within the segment.  The
+          keywords are khmer_tpu's settings, each defaulting to its
+          value on the device (CPU / card): `chunk`, bases per chunk, a
+          multiple of 2**14 (KHMER_TPU_CHUNK; 2**20 / 2**23); `window`
+          (flush_slice(); 2**23 / 2**25); `max_cap`, lanes of the append
+          buffer (KHMER_TPU_DEFER_CAP; 2**23 / 2**26), raised to two
+          chunks' lanes and a power of two; the ledger holds 4 x that.
+          A file with fewer distinct k-mers than the ledger's budget is
+          one segment, whose result does not depend on `chunk`;
         * a bigcount map loaded from disk: membership is tested per
           OVERLAY_CHUNK bases of the stream, khmer_tpu's CHUNK, and
           saturated counts are overlaid from the map (_abund_overlay).
@@ -291,69 +399,83 @@ class Hashtable:
         if self.storage.get_use_bigcount() and self.storage.bigcounts:
             fix = self._abund_overlay(parser_or_filename, tracking, hist)
         else:
-            if window is None:
-                window = 1 << (23 if self.device.type == "cpu" else 25)
-            self._abund_windows(parser_or_filename, tracking, hist, chunk,
-                                window)
+            cpu = self.device.type == "cpu"
+            self._abund_windows(
+                parser_or_filename, tracking, hist,
+                1 << (20 if cpu else 23) if chunk is None else chunk,
+                1 << (23 if cpu else 25) if window is None else window,
+                1 << (23 if cpu else 26) if max_cap is None else max_cap)
             fix = 0
         return [int(x) for x in hist.cpu().numpy() + fix]
 
-    def _first_occurrences(self, parser_or_filename, chunk):
-        """The distinct live hashes of a file, each with its first stream
-        position: (unsigned sort keys, int64 positions), sorted by key.
+    def _abund_windows(self, parser_or_filename, tracking, hist, chunk,
+                       window, max_cap):
+        """khmer_tpu's deferred abundance counter (ops/deferred.py:591-766
+        with hashtable.py:_make_abund_counter).  Each chunk's distinct
+        live hashes, with their first stream positions, join the open
+        cycle's ledger; a closed cycle joins the open segment's, after
+        the segment is flushed if the cycle would overflow it
+        (_DeferSchedule); the last segment is flushed at the end.  At
+        most one segment's ledger is held at a time."""
+        if chunk <= 0 or chunk % ROW_PAYLOAD:
+            raise ValueError("chunk must be a positive multiple of "
+                             "{}".format(ROW_PAYLOAD))
+        k = self._ksize
+        sched = _DeferSchedule(_lane_count(k, chunk), max_cap)
+        cycle, segment = _Ledger(), _Ledger()
 
-        Per chunk the live lanes are deduplicated (a stable sort keeps
-        the earliest lane of each run) and appended to a ledger of
-        pieces in stream order; the pieces are combined, by a stable
-        sort that keeps the earliest piece's entry, whenever they hold
-        twice the entries of the last combine, and at the end.  So the
-        ledger stays within a few times the distinct count, and each
-        entry is sorted a bounded number of times on average."""
-        keys, firsts = [], []
-        held = kept = 0  # entries in the pieces, and after the last combine
+        def close(bucket):
+            keys, firsts = cycle.take()
+            if sched.overflows(keys.numel(), bucket):
+                self._flush_segment(segment, tracking, hist, window)
+            segment.add(keys, firsts)
+
+        # khmer_tpu pads a short last chunk: to the chunk in the native
+        # loader, to a power of two from 2**14 in _FlatBatcher
+        native = isinstance(parser_or_filename, str)
         base = 0
         for codes, mask in self._chunks(parser_or_filename, chunk,
                                         _StreamStats()):
-            k, f = self._chunk_firsts(codes, mask)
-            keys.append(k)
-            firsts.append(f + base)
-            base += codes.numel()
-            held += k.numel()
-            del k, f
-            if len(keys) > 1 and held > 2 * kept:
-                _combine(keys, firsts)
-                held = kept = keys[0].numel()
-        if not keys:
-            empty = torch.empty(0, dtype=torch.int64, device=self.device)
-            return empty, empty
-        if len(keys) > 1:
-            _combine(keys, firsts)
-        return keys[0], firsts[0]
+            n = codes.numel()
+            bases = chunk if native or n == chunk else \
+                min(max(_pow2(n), ROW_PAYLOAD), chunk)
+            bucket = sched.append(_lane_count(k, bases))
+            if bucket:
+                close(bucket)
+            cycle.add(*self._chunk_firsts(codes, mask, base))
+            base += n
+        bucket = sched.finish()
+        if bucket:
+            close(bucket)
+        self._flush_segment(segment, tracking, hist, window)
 
-    def _chunk_firsts(self, codes, mask):
+    def _chunk_firsts(self, codes, mask, base):
         """The distinct live hashes of one chunk as unsigned sort keys,
-        ascending, each with the lane of its first occurrence."""
+        ascending, each with its first stream position (base + lane)."""
         h, w = chunk_hashes(codes, mask, self._ksize)
         # dead lanes sort last under the largest key, which no canonical
         # hash takes (min(fwd, rc) < 2**64 - 1)
         k, lane = _first_of_runs(torch.where(w != 0, _u64.sort_key(h), _DEAD))
         live = k != _DEAD
-        return k[live], lane[live]
+        return k[live], lane[live] + base
 
-    def _abund_windows(self, parser_or_filename, tracking, hist, chunk,
-                       window):
-        """khmer_tpu's deferred abundance flush (ops/deferred.py:748-766,
-        hashtable.py:_make_abund_flush_fn): the distinct keys, ordered by
+    def _flush_segment(self, segment, tracking, hist, window):
+        """Flush one segment of the ledger (ops/deferred.py:748-766,
+        hashtable.py:_make_abund_flush_fn): its distinct keys, ordered by
         first occurrence when there are more than `window`, pass in
         windows of `window` keys through K4 (membership against tracking
         as it stood before the window, count, histogram) and K2 (the
         window's new keys into tracking)."""
-        st, ts = self.storage, tracking.storage
-        keys, firsts = self._first_occurrences(parser_or_filename, chunk)
+        piece = segment.take()
+        if piece is None:
+            return
+        keys, firsts = piece
+        del piece
         if keys.numel() > window:
             keys = keys[torch.argsort(firsts)]
         del firsts
         keys = _u64.sort_key(keys)  # back to hash bit patterns
+        st, ts = self.storage, tracking.storage
         cap = st.read_cap()
         for off in range(0, keys.numel(), window):
             kw = keys[off: off + window]

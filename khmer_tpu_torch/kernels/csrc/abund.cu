@@ -30,8 +30,8 @@
 //    test reads table t of every key still undecided before it looks at
 //    any of them and stops at a key's first zero bin (min == 0 iff some
 //    bin is 0); a member's main count is never read; the main bins of
-//    the new keys are all issued before the min (T <= 4 unrolled by a
-//    template, a loop over tables for larger T);
+//    the new keys are all issued before the min (common.cuh's
+//    min_over_tables, which K3 shares);
 //  * the geometry of both sketches sits in shared memory.
 
 #include "common.cuh"
@@ -39,70 +39,7 @@
 namespace {
 
 constexpr int kSharedBins = 4096;
-constexpr int kKeysPerThread = 4;
 constexpr int kAbundThreads = 256;
-constexpr int kMaxTables = 32;
-
-struct Geometry {
-    u64 size[kMaxTables];
-    u64 recip[kMaxTables];
-    long long off[kMaxTables];
-};
-
-__device__ __forceinline__ long long bin_in(const Geometry& g, u64 h,
-                                            int t) {
-    return (long long)mod_barrett(h, g.size[t], g.recip[t]) + g.off[t];
-}
-
-__device__ __forceinline__ void load_geometry(Geometry& g, int T,
-                                              const long long* sizes,
-                                              const long long* offs,
-                                              const u64* recips) {
-    for (int t = threadIdx.x; t < T; t += blockDim.x) {
-        g.size[t] = (u64)sizes[t];
-        g.recip[t] = recips[t];
-        g.off[t] = offs[t];
-    }
-}
-
-// min over the T main bins of every new key; all loads issued first
-template <int T>
-__device__ __forceinline__ void main_counts(const unsigned* __restrict__ table,
-                                            const Geometry& g, int,
-                                            const u64 (&h)[kKeysPerThread],
-                                            const bool (&cnt)[kKeysPerThread],
-                                            unsigned (&c)[kKeysPerThread]) {
-    unsigned v[kKeysPerThread][T];
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; j++)
-#pragma unroll
-        for (int t = 0; t < T; t++)
-            v[j][t] = cnt[j] ? __ldg(table + bin_in(g, h[j], t)) : 0u;
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; j++) {
-        unsigned m = v[j][0];
-#pragma unroll
-        for (int t = 1; t < T; t++) m = min(m, v[j][t]);
-        c[j] = m;
-    }
-}
-
-template <>
-__device__ __forceinline__ void main_counts<0>(
-        const unsigned* __restrict__ table, const Geometry& g, int T,
-        const u64 (&h)[kKeysPerThread], const bool (&cnt)[kKeysPerThread],
-        unsigned (&c)[kKeysPerThread]) {
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; j++) c[j] = 0xFFFFFFFFu;
-    for (int t = 0; t < T; t++) {
-        unsigned v[kKeysPerThread];
-#pragma unroll
-        for (int j = 0; j < kKeysPerThread; j++)
-            v[j] = cnt[j] ? __ldg(table + bin_in(g, h[j], t)) : 0u;
-#pragma unroll
-        for (int j = 0; j < kKeysPerThread; j++) c[j] = min(c[j], v[j]);
-    }
-}
 
 __device__ __forceinline__ void hist_add(unsigned* sh, u64* hist, unsigned b,
                                          unsigned n) {
@@ -164,7 +101,7 @@ abund_hist_kernel(const u64* __restrict__ keys, long long n,
             if (!any) break;
         }
         unsigned c[kKeysPerThread];
-        main_counts<TM>(table, gm, T, h, fresh, c);
+        min_over_tables<TM>(table, gm, T, h, fresh, c);
 #pragma unroll
         for (int j = 0; j < kKeysPerThread; j++) {
             const unsigned b = min(c[j], cap);

@@ -39,3 +39,74 @@ __device__ __forceinline__ long long bin_of(u64 h, int t,
     return (long long)mod_barrett(h, (u64)__ldg(sizes + t),
                                   __ldg(recips + t)) + __ldg(offs + t);
 }
+
+// ---- the gather of K3 and K4 -----------------------------------------------
+
+constexpr int kMaxTables = 32;
+constexpr int kKeysPerThread = 4;
+
+// A sketch's geometry, staged in shared memory by each block.
+struct Geometry {
+    u64 size[kMaxTables];
+    u64 recip[kMaxTables];
+    long long off[kMaxTables];
+};
+
+__device__ __forceinline__ long long bin_in(const Geometry& g, u64 h,
+                                            int t) {
+    return (long long)mod_barrett(h, g.size[t], g.recip[t]) + g.off[t];
+}
+
+// The caller synchronises the block before the geometry is read.
+__device__ __forceinline__ void load_geometry(Geometry& g, int T,
+                                              const long long* sizes,
+                                              const long long* offs,
+                                              const u64* recips) {
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        g.size[t] = (u64)sizes[t];
+        g.recip[t] = recips[t];
+        g.off[t] = offs[t];
+    }
+}
+
+// c[j] = min over the T tables of table[bin of h[j]] for every key with
+// want[j] (0 for the others), read through the read-only path.  For
+// T <= 4 (the template argument) every table's load of every key is
+// issued before any min, kKeysPerThread * T loads in flight; T = 0 is
+// the loop over the runtime T, which issues each table's loads together.
+template <int T>
+__device__ __forceinline__ void min_over_tables(
+        const unsigned* __restrict__ table, const Geometry& g, int,
+        const u64 (&h)[kKeysPerThread], const bool (&want)[kKeysPerThread],
+        unsigned (&c)[kKeysPerThread]) {
+    unsigned v[kKeysPerThread][T];
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++)
+#pragma unroll
+        for (int t = 0; t < T; t++)
+            v[j][t] = want[j] ? __ldg(table + bin_in(g, h[j], t)) : 0u;
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) {
+        unsigned m = v[j][0];
+#pragma unroll
+        for (int t = 1; t < T; t++) m = min(m, v[j][t]);
+        c[j] = m;
+    }
+}
+
+template <>
+__device__ __forceinline__ void min_over_tables<0>(
+        const unsigned* __restrict__ table, const Geometry& g, int T,
+        const u64 (&h)[kKeysPerThread], const bool (&want)[kKeysPerThread],
+        unsigned (&c)[kKeysPerThread]) {
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) c[j] = 0xFFFFFFFFu;
+    for (int t = 0; t < T; t++) {
+        unsigned v[kKeysPerThread];
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++)
+            v[j] = want[j] ? __ldg(table + bin_in(g, h[j], t)) : 0u;
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++) c[j] = min(c[j], v[j]);
+    }
+}

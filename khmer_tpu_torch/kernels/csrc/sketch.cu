@@ -57,7 +57,18 @@
 //
 // K3 replaces sketch_ops.py:sketch_get (:222-230): min over tables of the
 // bin totals, capped at the storage kind's read cap, u16 out.  Bound:
-// bytes, 8 + 4 T read and 2 written per lane.
+// bytes, counted in chip_smoke.py with each input byte once: per lane 8
+// (hash) read and 2 (count) written, and the T 4-byte bins of each
+// distinct hash.  Each bin is in fact a random 32-byte sector of a table
+// far larger than L2, so the card's rate of random sectors is what a key
+// costs.  Design: four keys a thread, read as two 16-byte streaming loads
+// (__ldcs) and their four counts written as one 8-byte streaming store
+// (__stcs), so the key and count streams do not push table sectors out of
+// L2; the gather is K4's (common.cuh min_over_tables: all 4 T read-only
+// loads of a thread issued before any min, T <= 4); a thread for every
+// four keys, in blocks small enough that a short batch still reaches
+// every SM.  The first K3 took one key a thread and looped over tables with
+// a runtime bound.
 //
 // bin_scatter_add replaces the step that
 // benchmarks/explore_pallas_scatter.py:_make_pallas_scatter (:59-132)
@@ -710,20 +721,47 @@ __global__ void sketch_finish_kernel(const unsigned* __restrict__ table,
 
 // ---- K3 --------------------------------------------------------------------
 
-__global__ void sketch_get_kernel(const unsigned* __restrict__ table,
-                                  const u64* __restrict__ hashes,
-                                  long long n, int T,
-                                  const long long* __restrict__ sizes,
-                                  const long long* __restrict__ offs,
-                                  const u64* __restrict__ recips,
-                                  unsigned cap, uint16_t* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int kGetThreads = 256;
+
+template <int TM>
+__global__ void __launch_bounds__(kGetThreads)
+sketch_get_kernel(const unsigned* __restrict__ table,
+                  const u64* __restrict__ hashes, long long n, int T,
+                  const long long* __restrict__ sizes,
+                  const long long* __restrict__ offs,
+                  const u64* __restrict__ recips, unsigned cap, bool vec,
+                  uint16_t* __restrict__ out) {
+    __shared__ Geometry g;
+    load_geometry(g, T, sizes, offs, recips);
+    __syncthreads();
+    const long long i =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kKeysPerThread;
     if (i >= n) return;
-    const u64 h = hashes[i];
-    unsigned m = 0xFFFFFFFFu;
-    for (int t = 0; t < T; t++)
-        m = min(m, table[bin_of(h, t, sizes, offs, recips)]);
-    out[i] = (uint16_t)min(m, cap);
+    const bool whole = i + kKeysPerThread <= n;
+    u64 h[kKeysPerThread];
+    bool live[kKeysPerThread];
+    if (whole && vec) {
+        const ulonglong2 a = __ldcs((const ulonglong2*)(hashes + i));
+        const ulonglong2 b = __ldcs((const ulonglong2*)(hashes + i + 2));
+        h[0] = a.x, h[1] = a.y, h[2] = b.x, h[3] = b.y;
+    } else {
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++)
+            h[j] = i + j < n ? __ldcs(hashes + i + j) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) live[j] = i + j < n;
+    unsigned c[kKeysPerThread];
+    min_over_tables<TM>(table, g, T, h, live, c);
+    if (whole) {
+        __stcs((uint2*)(out + i),
+               make_uint2(min(c[0], cap) | min(c[1], cap) << 16,
+                          min(c[2], cap) | min(c[3], cap) << 16));
+    } else {
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++)
+            if (i + j < n) out[i + j] = (uint16_t)min(c[j], cap);
+    }
 }
 
 // ---- bin_scatter_add -------------------------------------------------------
@@ -871,15 +909,47 @@ extern "C" int khmer_sketch_update(void* table, long long nbins,
     return 0;
 }
 
+template <int TM>
+static int get_launch(const void* table, const void* hashes, long long n,
+                      int T, const void* sizes, const void* offs,
+                      const void* recips, unsigned cap, bool vec, void* out,
+                      long long blocks, int threads, void* stream) {
+    sketch_get_kernel<TM><<<(unsigned)blocks, threads, 0,
+                            (cudaStream_t)stream>>>(
+        (const unsigned*)table, (const u64*)hashes, n, T,
+        (const long long*)sizes, (const long long*)offs, (const u64*)recips,
+        cap, vec, (uint16_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// out is a fresh allocation (8-byte aligned); hashes may be a view, and
+// take the vector loads only when 16-byte aligned.
 extern "C" int khmer_sketch_get(const void* table, const void* hashes,
                                 long long n, int T, const void* sizes,
                                 const void* offs, const void* recips,
                                 unsigned cap, void* out, void* stream) {
-    sketch_get_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const unsigned*)table, (const u64*)hashes, n, T,
-        (const long long*)sizes, (const long long*)offs,
-        (const u64*)recips, cap, (uint16_t*)out);
-    return (int)cudaGetLastError();
+    if (T < 1 || T > kMaxTables) return (int)cudaErrorInvalidValue;
+    if (n <= 0) return 0;
+    // a thread for every four keys, in blocks small enough that a short
+    // batch still reaches every SM
+    const int sms = sm_count();
+    const long long quads = (n + kKeysPerThread - 1) / kKeysPerThread;
+    int threads = kGetThreads;
+    while (threads > 32 && quads < (long long)threads * sms) threads /= 2;
+    const long long blocks = (quads + threads - 1) / threads;
+    const bool vec = (uintptr_t)hashes % 16 == 0;
+    switch (T) {
+    case 1: return get_launch<1>(table, hashes, n, T, sizes, offs, recips,
+                                 cap, vec, out, blocks, threads, stream);
+    case 2: return get_launch<2>(table, hashes, n, T, sizes, offs, recips,
+                                 cap, vec, out, blocks, threads, stream);
+    case 3: return get_launch<3>(table, hashes, n, T, sizes, offs, recips,
+                                 cap, vec, out, blocks, threads, stream);
+    case 4: return get_launch<4>(table, hashes, n, T, sizes, offs, recips,
+                                 cap, vec, out, blocks, threads, stream);
+    default: return get_launch<0>(table, hashes, n, T, sizes, offs, recips,
+                                  cap, vec, out, blocks, threads, stream);
+    }
 }
 
 extern "C" int khmer_bin_scatter_add(void* table, long long nbins,

@@ -8,17 +8,21 @@ membership once per window of flush_slice() distinct keys in order of
 first occurrence (ops/deferred.py:748-766), or, for a table loaded with
 a bigcount map, once per CHUNK = 2**20 bases (hashtable.py:1725-1755);
 where such a false positive falls across a boundary the result depends
-on it, so the port must draw the same boundaries.  Integer data
-throughout: the tolerance is exact equality."""
+on it, so the port must draw the same boundaries.  On a file with more
+distinct k-mers than its ledger's budget, khmer_tpu also flushes the
+ledger early as a segment (ops/deferred.py:708-721), and the windows
+start again in each segment.  Integer data throughout: the tolerance is
+exact equality."""
 
 import numpy as np
 import pytest
 import torch
 
 import khmer_tpu
-from khmer_tpu.hashtable import _make_abund_flush_fn
+from khmer_tpu.hashtable import _chunk_lane_count, _make_abund_flush_fn
+from khmer_tpu.ops import deferred
 from khmer_tpu.ops import sketch_ops as jsk
-from khmer_tpu_torch import Countgraph, Nodegraph, _u64, kernels
+from khmer_tpu_torch import Countgraph, Nodegraph, _u64, hashtable, kernels
 from khmer_tpu_torch.ops.sketch_ops import SketchSpec, alloc_table
 from khmer_tpu_torch.storage import BitStorage
 
@@ -93,6 +97,66 @@ def test_histogram_matches_in_windows(ref, size, chunk):
     got = _port_hist(p, fa, chunk=chunk, window=1 << 14)
     assert got == jax[14]
     assert sum(got[0]) < 19967
+
+
+@pytest.mark.parametrize("bases", [1 << 14, 3 << 14, 1 << 20])
+@pytest.mark.parametrize("k", [1, 17, 20, 32])
+def test_lane_count_matches(k, bases):
+    """The lanes that khmer_tpu's deferred counter books per chunk."""
+    assert hashtable._lane_count(k, bases) == \
+        _chunk_lane_count(k, "2bit", bases)
+
+
+def _random_reads(seed=21, n_reads=2500, repeats=1450, readlen=100):
+    """n_reads random reads (about 81 distinct k-mers each, ~2e5 in
+    all), then `repeats` of them again in another order."""
+    rng = np.random.default_rng(seed)
+    seqs = rng.integers(0, 4, (n_reads, readlen), dtype=np.uint8)
+    seqs = np.concatenate([seqs, seqs[rng.permutation(n_reads)[:repeats]]])
+    return [s.tobytes().decode()
+            for s in np.frombuffer(b"ACGT", np.uint8)[seqs]]
+
+
+@pytest.mark.parametrize("source", ["file", "parser"])
+def test_histogram_matches_across_ledger_overflows(tmp_path, monkeypatch,
+                                                   source):
+    """khmer_tpu at its smallest chunk (2**14 bases), append buffer
+    (DEFER_CAP=1: two chunks' lanes, 2**16) and flush window (2**14):
+    its ledger of 2**18 lanes overflows twice on ~2e5 distinct k-mers,
+    so it flushes three segments.  The port, given the same settings,
+    draws the same segments: equal histogram and tracking n_unique,
+    through the native loader (a file) and _FlatBatcher (a list of
+    reads, whose padded last chunk counts fewer lanes).  One segment
+    with the same windows (the port's rule before the repair) gives
+    another histogram."""
+    seqs = _random_reads()
+    fa = str(tmp_path / "reads.fa")
+    with open(fa, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(">r%d\n%s\n" % (i, s))
+    src = fa if source == "file" else seqs
+    p, j = _tables(fa, str(tmp_path / "reads.ct"), SIZES[0])
+
+    overflows = []
+    ledger_overflow = deferred.DeferredCounter._ledger_overflow
+
+    def counted(self):
+        overflows.append(self.ledger_fill)
+        return ledger_overflow(self)
+
+    monkeypatch.setattr(deferred.DeferredCounter, "_ledger_overflow",
+                        counted)
+    monkeypatch.setenv("KHMER_TPU_CHUNK", "16384")
+    monkeypatch.setenv("KHMER_TPU_DEFER_CAP", "1")
+    monkeypatch.setenv("KHMER_TPU_FLUSH_LOG", "14")
+    track = khmer_tpu.Nodegraph(K, 1, 1, primes=j.hashsizes())
+    want = j.abundance_distribution(src, track), track.n_unique_kmers()
+    assert len(overflows) == 2
+
+    got = _port_hist(p, src, chunk=1 << 14, window=1 << 14, max_cap=1)
+    assert got == want
+    one_segment = _port_hist(p, src, chunk=1 << 14, window=1 << 14)
+    assert one_segment[0] != want[0]
 
 
 def test_overlay_path_matches(tmp_path):

@@ -3,7 +3,8 @@ on the card, at small sizes and edge cases that chip_smoke.py does not
 reach (empty and ragged inputs, one table and 32, weights >= 2**31,
 hashes >= 2**63, a candidate buffer that overflows, a hot partition,
 bins beside partition and table boundaries, all lanes masked, unsorted
-and duplicate scatter bins).  Integer data: exact
+and duplicate scatter bins, inputs that are unaligned views, khmer_tpu's
+ledger overflows).  Integer data: exact
 equality.  Marked `cuda`: they skip without a CUDA device and run on
 the card with `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py` (the suite's conftest imports jax, which the
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from khmer_tpu_torch import Countgraph, Nodegraph, _u64, kernels
+from khmer_tpu_torch import Countgraph, Nodegraph, _u64, hashtable, kernels
 from khmer_tpu_torch.kernels import plain
 from khmer_tpu_torch.ops.sketch_ops import SketchSpec, unpack_oxli_bytes
 from khmer_tpu_torch.primes import get_n_primes_near_x
@@ -56,14 +57,24 @@ def _table(rng, sizes, high):
     return torch.from_numpy(t.astype(np.uint32).view(np.int32))
 
 
-@pytest.mark.parametrize("n", [0, 1, 19, 20, 257, 5000])
-@pytest.mark.parametrize("k", [1, 20, 32])
-def test_hash2bit_canonical(dev, n, k):
+K1_TILE = 1024  # window starts per block of csrc/hash2bit.cu
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 19, 20, 257, K1_TILE - 1,
+                               K1_TILE, K1_TILE + 1, 5000, (1 << 20) + 3])
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 20, 31, 32])
+def test_hash2bit_canonical(dev, n, k, offset):
+    """Every lane, masked or not, the tail lanes whose windows run past
+    the end included; a word's 16 codes and a tile's edges at n +- 1; the
+    inputs as views `offset` bytes into their buffers (offset 5: no
+    16-byte loads)."""
     rng = np.random.default_rng(n * 100 + k)
-    codes = torch.from_numpy(rng.integers(0, 4, n, dtype=np.uint8))
-    mask = torch.from_numpy((rng.random(n) < 0.8).astype(np.uint8))
-    h, w = kernels.hash2bit_canonical(codes.to(dev), mask.to(dev), k)
-    ph, pw = plain.hash2bit_canonical(codes, mask, k)
+    codes = torch.from_numpy(rng.integers(0, 4, n + offset, dtype=np.uint8))
+    mask = torch.from_numpy((rng.random(n + offset) < 0.8).astype(np.uint8))
+    h, w = kernels.hash2bit_canonical(codes.to(dev)[offset:],
+                                      mask.to(dev)[offset:], k)
+    ph, pw = plain.hash2bit_canonical(codes[offset:], mask[offset:], k)
     assert torch.equal(h.cpu(), ph) and torch.equal(w.cpu(), pw)
 
 
@@ -214,16 +225,23 @@ def test_barrett_bins_on_card(dev):
         assert torch.equal(hk, hp)
 
 
+@pytest.mark.parametrize("n,offset", [(3, 0), (777, 1), (16386, 0),
+                                      (16386, 1)])
 @pytest.mark.parametrize("cap", [1, 255, 65535])
-def test_sketch_get(dev, cap):
-    rng = np.random.default_rng(cap)
-    table = _table(rng, SIZES, 2 ** 32)
-    hashes = _u64.as_tensor(_hashes(rng, 777, 500), "cpu")
-    geom = SketchSpec("byte", SIZES).geometry("cpu")
-    got = kernels.sketch_get(table.to(dev), hashes.to(dev),
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 32])
+def test_sketch_get(dev, T, cap, n, offset):
+    """T = 1-4 (the unrolled gather) and 5, 32 (the loop); n not a
+    multiple of a thread's four keys; the hashes as a view one lane into
+    their buffer (offset 1: no 16-byte loads)."""
+    rng = np.random.default_rng(T * 1000 + cap + n)
+    sizes = _primes(T)
+    table = _table(rng, sizes, 2 ** 32)
+    hashes = _u64.as_tensor(_hashes(rng, n + offset, 500), "cpu")
+    geom = SketchSpec("byte", sizes).geometry("cpu")
+    got = kernels.sketch_get(table.to(dev), hashes.to(dev)[offset:],
                              *[g.to(dev) for g in geom], cap)
-    assert torch.equal(got.cpu(), plain.sketch_get(table, hashes, *geom,
-                                                   cap))
+    assert torch.equal(got.cpu(), plain.sketch_get(table, hashes[offset:],
+                                                   *geom, cap))
 
 
 def _track(rng, sizes, density):
@@ -432,11 +450,22 @@ def test_main_path_small_on_card(dev, tmp_path):
     assert sum(out[0][3][256:]) > 0
 
 
-@pytest.mark.parametrize("path", ["windows", "overlay"])
-def test_abundance_paths_on_card(dev, tmp_path, path):
+@pytest.mark.parametrize("path", ["windows", "overflow", "overlay"])
+def test_abundance_paths_on_card(dev, tmp_path, monkeypatch, path):
     """abundance_distribution on the card equals the CPU run in windows
-    of 2**12 distinct keys, and on a table loaded with a bigcount map
-    (tracking membership per 2**20 bases of a 1.1 Mbase file)."""
+    of 2**12 distinct keys; with khmer_tpu's smallest chunk and append
+    buffer, where its ledger overflows (2**14-base chunks, a 2**18-lane
+    ledger); and on a table loaded with a bigcount map (tracking
+    membership per 2**20 bases of a 1.1 Mbase file)."""
+    overflows = []
+    schedule_overflows = hashtable._DeferSchedule.overflows
+
+    def counted(self, n, bucket):
+        over = schedule_overflows(self, n, bucket)
+        overflows.append(over)
+        return over
+
+    monkeypatch.setattr(hashtable._DeferSchedule, "overflows", counted)
     fa = str(tmp_path / "reads.fa")
     _write_reads(fa, seed=8, n_reads=11000)
     ct = str(tmp_path / "reads.ct")
@@ -455,7 +484,11 @@ def test_abundance_paths_on_card(dev, tmp_path, path):
             cg = Countgraph(20, 50021, 4, device=d)
             cg.consume_seqfile(fa)
             kwargs = {"window": 1 << 12}
+            if path == "overflow":
+                kwargs.update(chunk=1 << 14, max_cap=1)
         track = Nodegraph(20, 1, 1, primes=cg.hashsizes(), device=d)
         out.append((cg.abundance_distribution(fa, track, **kwargs),
                     track.n_unique_kmers()))
     assert out[0] == out[1]
+    # two overflows on each device on the overflow path, none elsewhere
+    assert sum(overflows) == (4 if path == "overflow" else 0)
