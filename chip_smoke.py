@@ -27,8 +27,28 @@ Phases (any failure exits non-zero; nothing is caught):
      sha256, n_unique and histograms identical) and (b) an exact numpy
      count of the canonical k-mers (n_unique within the collision bound
      of the table sizes; both histogram totals equal to the distinct
-     count, which is within one membership window).  Every kernel must
-     have been launched by this run; its peak device memory is printed.
+     count, which is within one membership window).  Every kernel of
+     this path must have been launched by this run; its peak device
+     memory is printed;
+  3b. slice-2 kernels against their plain versions on the card, exact:
+     K5 on 16,384 rows x 148 codes of the phase-4 reads against the
+     phase-4 .ct, with and without hashes (and K1 + K3 back to back on
+     the same rows, timed beside it); K6 and K7 on the first
+     16,384-bundle batch of the phase-5 file with its pre-counts from
+     the phase-4 .ct, and on the same batch with every 8th bundle a
+     repeat of the one before it;
+  5. the slice-2 path: normalize-by-median -p -C 20 --savegraph,
+     trim-low-abund -C 3 -Z 18 -V, filter-abund -C 2 (phase-4 .ct),
+     filter-abund-single -C 2 and count-median (phase-4 .ct, the first
+     100,000 reads), all at -k 20 -N 4 -x 1e8, on 1,280,000 interleaved
+     100-bp reads in pairs (0.5% substitutions) at 40x over the phase-4
+     genome, through the port's script entry points.  Held against (a)
+     the same runs through the plain versions on the card (every output
+     file's sha256, reads and bases written, n_unique identical) and
+     (b) a numpy replay of the first batch's keep decisions from K3
+     pre-counts.  K5, K6 and K7 must have been launched by this run; the
+     walls, rates, device busy shares and peak device memory are
+     printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -63,7 +83,23 @@ SOURCES = {
                    "khmer_tpu/hashtable.py:358"),
     "bin_scatter_add": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
                         "benchmarks/explore_pallas_scatter.py:59"),
+    "row_counts": ("khmer_tpu_torch/kernels/csrc/rows.cu",
+                   "khmer_tpu/hashtable.py:472"),
+    "diginorm_chain": ("khmer_tpu_torch/kernels/csrc/chain.cu",
+                       "khmer_tpu/hashtable.py:760"),
+    "trim_chain": ("khmer_tpu_torch/kernels/csrc/chain.cu",
+                   "khmer_tpu/hashtable.py:499"),
 }
+# the kernels each path must launch: phase 4 (slice 1) and phase 5
+# (slice 2, which loads .ct files and counts as slice 1 does)
+MAIN_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
+             "abund_hist", "bin_scatter_add")
+SLICE2_PATH = ("row_counts", "diginorm_chain", "trim_chain",
+               "hash2bit_canonical", "sketch_update", "sketch_get",
+               "bin_scatter_add")
+SLICE2_READS = 1_280_000  # reads of the phase-5 file: 40x over the genome
+SLICE2_COVERAGE = 40
+BATCH = 16384  # bundles per normalize-by-median / trim-low-abund batch
 
 
 def fail(msg):
@@ -123,6 +159,20 @@ def bound_ms(nbytes):
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
+
+
+def record_kernel(rec, name, err, ms, plain_ms, nbytes, library_ms=None,
+                  **extra):
+    """Keep and print one kernel's check and times; fail on a mismatch."""
+    rec[name] = dict(match=err == 0, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                     bound_by="bytes", library_ms=library_ms, **extra)
+    log("kernel {:20s} max_abs_err={} ms={:.4f} plain_ms={:.4f} "
+        "bound_ms={:.4f} library_ms={}{}".format(
+            name, err, ms, plain_ms, bound_ms(nbytes), library_ms,
+            "".join(" {}={}".format(k, v) for k, v in extra.items())))
+    if err != 0:
+        fail("{} disagrees with its plain version".format(name))
 
 
 def kernel_ms_by_name(fn, reps):
@@ -201,17 +251,8 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
     g.manual_seed(seed)
     rec = {}
 
-    def record(name, err, ms, plain_ms, nbytes, library_ms=None, **extra):
-        rec[name] = dict(match=err == 0, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms,
-                         bound_ms=bound_ms(nbytes), bound_by="bytes",
-                         library_ms=library_ms, **extra)
-        log("kernel {:20s} max_abs_err={} ms={:.4f} plain_ms={:.4f} "
-            "bound_ms={:.4f} library_ms={}{}".format(
-                name, err, ms, plain_ms, bound_ms(nbytes), library_ms,
-                "".join(" {}={}".format(k, v) for k, v in extra.items())))
-        if err != 0:
-            fail("{} disagrees with its plain version".format(name))
+    def record(*args, **kwargs):
+        record_kernel(rec, *args, **kwargs)
 
     # K1 on one main-path chunk (hashtable.CHUNK bases) at every edge-case k
     n = CHUNK
@@ -583,7 +624,7 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
         "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
     log("main path walls (s): {} [{}]".format(json.dumps(got["walls"]),
                                               card))
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
         fail("kernels not launched by the main path: {}".format(missing))
 
@@ -679,7 +720,8 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
 
 def device_share(name, fn, card):
     """Run fn once under torch.profiler and print the device's busy time
-    (CUDA kernels and copies, summed) against the wall clock."""
+    (CUDA kernels and copies, summed) against the wall clock.  Returns
+    (wall s, busy s), busy None when the profiler saw no CUDA event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -700,7 +742,7 @@ def device_share(name, fn, card):
     if not by_name:
         log("profile {}: wall {:.3f} s; device time not measured (the "
             "profiler saw no CUDA events)".format(name, wall))
-        return
+        return wall, None
     # the six longest, and every kernel of the port's own
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     top = top[:6] + [kv for kv in top[6:] if "_kernel" in kv[0] and
@@ -710,6 +752,347 @@ def device_share(name, fn, card):
             name, wall, busy, 100 * busy / wall, 100 - 100 * busy / wall,
             card, "; ".join("{} {:.3f}".format(n[:48], us / 1e3)
                             for n, us in top)))
+    return wall, busy
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the slice-2 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def fixed_records(path, n, width, skip):
+    """The first n sequences of a FASTA file of fixed-width records (each
+    `width` bytes, the sequence after `skip` header bytes), as str."""
+    raw = np.fromfile(path, np.uint8, count=n * width).reshape(n, width)
+    return [r.tobytes().decode() for r in raw[:, skip:width - 1]]
+
+
+def chain_bytes(ids, valid, n_distinct, taken_rows, extra):
+    """K6/K7 bound bytes, each input read once and each output written
+    once: 1 (valid) a window, 4 (id) a valid window, 2 (pre) a distinct
+    k-mer, 1 (real) a row, 4 (tally) a distinct k-mer that a taken
+    bundle holds (the others stay the wrapper's zeros), plus the flags
+    out (`extra`)."""
+    import torch
+
+    lanes = valid.bool()
+    tallied = torch.unique(ids[lanes & taken_rows[:, None]]).numel()
+    return (ids.numel() + int(lanes.sum()) * 4 + n_distinct * 2 +
+            ids.shape[0] + tallied * 4 + extra)
+
+
+def check_slice2_kernels(dev, ct, reads_fa, pairs_fa, rec):
+    """K5 on 16,384 bench rows against the phase-4 .ct; K6 and K7 on the
+    first batch of the phase-5 file (pre-counts from the phase-4 .ct),
+    as it is and with every 8th bundle repeating the one before it."""
+    import torch
+
+    from khmer_tpu_torch import Countgraph, kernels
+    from khmer_tpu_torch.hashtable import _batch_ids, _pad_rows
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.ops.hashing import kmer_hashes_2bit
+
+    def record(*args, **kwargs):
+        record_kernel(rec, *args, **kwargs)
+
+    cg = Countgraph.load(ct, device=dev)
+    st = cg.storage
+    geom, cap = st._geom, st.read_cap()
+    log("phase 3b: K5 on {} rows of the phase-4 reads, K6 and K7 on the "
+        "first {}-bundle batch of the phase-5 file".format(BATCH, BATCH))
+    codes, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+        fixed_records(reads_fa, BATCH, 111, 10), K))
+    B, L = codes.shape
+    W = L - K + 1
+    err = 0
+    for want in (False, True):
+        got = kernels.row_counts(codes, lengths, K, st.table, *geom, cap,
+                                 want)
+        ref = plain.row_counts(codes, lengths, K, st.table, *geom, cap, want)
+        err = max(err, max_abs_err(got[0].to(torch.int32),
+                                   ref[0].to(torch.int32)))
+        if want:
+            err = max(err, max_abs_err(got[1], ref[1]))
+            valid = torch.arange(W, device=dev)[None, :] + K <= \
+                lengths[:, None]
+            distinct = int(torch.unique(got[1][valid]).numel())
+
+    def k1_k3():
+        h, _ = kmer_hashes_2bit(codes, lengths, K)
+        return kernels.sketch_get(st.table, h.reshape(-1), *geom, cap)
+
+    base = B * L + B * 4 + distinct * st.spec.n_tables * 4
+    record("row_counts", err,
+           cuda_ms(lambda: kernels.row_counts(codes, lengths, K, st.table,
+                                              *geom, cap), 10),
+           cuda_ms(lambda: plain.row_counts(codes, lengths, K, st.table,
+                                            *geom, cap), 3),
+           base + B * W * 2, rows=B, width=L,
+           hashes_ms=cuda_ms(lambda: kernels.row_counts(
+               codes, lengths, K, st.table, *geom, cap, True), 10),
+           hashes_bound_ms=bound_ms(base + B * W * 10),
+           k1_k3_ms=cuda_ms(k1_k3, 10))
+    del codes, lengths
+
+    codes, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+        fixed_records(pairs_fa, 2 * BATCH, 114, 13), K, min_rows=2))
+    h, valid = kmer_hashes_2bit(codes, lengths, K)
+    ids, keys = _batch_ids(h, valid)
+    valid = valid.to(torch.uint8)
+    pre = st.get_lanes(keys)
+    real = torch.ones(ids.shape[0], dtype=torch.uint8, device=dev)
+    rep_ids, rep_valid = ids.clone(), valid.clone()
+    for b in range(1, BATCH, 8):
+        rep_ids[2 * b: 2 * b + 2] = rep_ids[2 * b - 2: 2 * b]
+        rep_valid[2 * b: 2 * b + 2] = rep_valid[2 * b - 2: 2 * b]
+    del h, codes, lengths
+    out = {}
+    for name, fn, args in (
+            ("diginorm_chain", "diginorm_chain", (20,)),
+            ("trim_chain", "trim_chain", (18, None, 3)),
+            ("trim_chain_dn", "trim_chain", (18, 20, 3))):
+        err = 0
+        for i, v in ((rep_ids, rep_valid), (ids, valid)):
+            got = getattr(kernels, fn)(i, v, real, pre, *args)
+            ref = getattr(plain, fn)(i, v, real, pre, *args)
+            err = max([err] + [max_abs_err(a, b) for a, b in zip(got, ref)])
+        # the timed input is the batch as it is, the last one checked
+        taken = (got[0] != 0) if fn == "diginorm_chain" else got[0] == 2
+        out[name] = dict(
+            err=err, taken=int(taken.sum()),
+            ms=cuda_ms(lambda: getattr(kernels, fn)(ids, valid, real, pre,
+                                                    *args), 3, inner=1),
+            plain_ms=cuda_ms(lambda: getattr(plain, fn)(
+                ids, valid, real, pre, *args), 1, inner=1, warmup=0),
+            bytes=chain_bytes(ids, valid, pre.numel(),
+                              taken.repeat_interleave(2),
+                              BATCH + (8 * BATCH if fn == "trim_chain"
+                                       else 0)))
+    d = out["diginorm_chain"]
+    record("diginorm_chain", d["err"], d["ms"], d["plain_ms"], d["bytes"],
+           bundles=BATCH, nw=ids.shape[1], kept=d["taken"],
+           us_per_bundle=1e3 * d["ms"] / BATCH)
+    t, tdn = out["trim_chain"], out["trim_chain_dn"]
+    record("trim_chain", max(t["err"], tdn["err"]), t["ms"], t["plain_ms"],
+           t["bytes"], bundles=BATCH, saved=t["taken"],
+           us_per_bundle=1e3 * t["ms"] / BATCH, dn_ms=tdn["ms"],
+           dn_saved=tdn["taken"], dn_bound_ms=bound_ms(tdn["bytes"]))
+    del cg, st, ids, valid, rep_ids, rep_valid, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the slice-2 path at full width
+# ---------------------------------------------------------------------------
+
+
+def make_pairs(path, seed, n_reads, coverage, genome_mb=3.2, readlen=100,
+               insert=300, err=0.005):
+    """Interleaved read pairs (/1 forward, /2 the reverse complement of
+    the fragment's other end, `insert` bases apart) over the first
+    n_reads * readlen / coverage bases of make_reads' genome (the same
+    seed draws it), with a share `err` of bases substituted.  Records
+    are 114 bytes: '>p' + 8 digits + '/1' or '/2', then the sequence."""
+    genome = np.random.default_rng(seed).integers(
+        0, 4, int(genome_mb * 1e6), dtype=np.uint8)
+    span = min(genome.size, n_reads * readlen // coverage)
+    rng = np.random.default_rng(seed + 2)
+    n_pairs = n_reads // 2
+    starts = rng.integers(0, span - insert, n_pairs)
+    win = np.arange(readlen)
+    r1 = genome[starts[:, None] + win]
+    r2 = 3 - genome[(starts + insert - readlen)[:, None] + win][:, ::-1]
+    reads = np.stack([r1, r2], 1).reshape(2 * n_pairs, readlen)
+    hit = rng.random(reads.shape, dtype=np.float32) < err
+    reads[hit] = (reads[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    rec = np.empty((2 * n_pairs, 14 + readlen), np.uint8)
+    rec[:, 0:2] = np.frombuffer(b">p", np.uint8)
+    ids = np.repeat(np.arange(n_pairs, dtype=np.int64), 2)
+    pows = 10 ** np.arange(7, -1, -1, dtype=np.int64)
+    rec[:, 2:10] = (ids[:, None] // pows) % 10 + ord("0")
+    rec[:, 10] = ord("/")
+    rec[:, 11] = ord("1") + np.arange(2 * n_pairs) % 2
+    rec[:, 12] = ord("\n")
+    rec[:, 13:13 + readlen] = np.frombuffer(b"ACGT", np.uint8)[reads]
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+    return span
+
+
+def count_records(path):
+    """(records, bases) of a FASTA file with one sequence line each."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return len(lines) // 2, sum(len(x) for x in lines[1::2])
+
+
+def slice2_scripts(workdir, pairs_fa, head_fa, ct, dev, profile, card):
+    """The five slice-2 scripts on `dev`, in `workdir`; returns their
+    walls (and device busy seconds when `profile`), the outputs' sha256,
+    reads and bases written, and the n_unique values the scripts read."""
+    from khmer_tpu_torch.hashtable import Hashtable
+    from khmer_tpu_torch.scripts import (count_median, filter_abund,
+                                         filter_abund_single,
+                                         normalize_by_median, trim_low_abund)
+
+    os.makedirs(workdir)
+    table = ["-k", str(K), "-N", "4", "-x", repr(TABLE_SIZE)]
+    runs = (
+        ("normalize-by-median", normalize_by_median.main,
+         ["-q"] + table + ["-p", "-C", "20", "--savegraph", "nbm.ct",
+                           pairs_fa], ["pairs.fa.keep", "nbm.ct"]),
+        ("trim-low-abund", trim_low_abund.main,
+         ["-q"] + table + ["-C", "3", "-Z", "18", "-V", pairs_fa],
+         ["pairs.fa.abundtrim"]),
+        ("filter-abund", filter_abund.main,
+         ["-q", "-C", "2", "-o", "filter.fa", ct, pairs_fa], ["filter.fa"]),
+        ("filter-abund-single", filter_abund_single.main,
+         ["-q"] + table + ["-C", "2", "-o", "single.fa", pairs_fa],
+         ["single.fa"]),
+        ("count-median", count_median.main,
+         [ct, head_fa, "median.csv"], ["median.csv"]))
+    n_unique = []
+    counted = Hashtable.n_unique_kmers
+
+    def n_unique_kmers(self):
+        n_unique.append(counted(self))
+        return n_unique[-1]
+
+    out = {"walls": {}, "busy": {}}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with mock.patch.object(Hashtable, "n_unique_kmers", n_unique_kmers):
+            for name, fn, argv, outputs in runs:
+                sync(dev)
+                run = lambda: fn(argv, device=dev)  # noqa: E731
+                if profile:
+                    wall, busy = device_share(name, run, card)
+                    out["busy"][name] = busy
+                else:
+                    t0 = time.perf_counter()
+                    run()
+                    sync(dev)
+                    wall = time.perf_counter() - t0
+                out["walls"][name] = wall
+                gc.collect()
+                for o in outputs:
+                    with open(o, "rb") as f:
+                        out[o] = hashlib.sha256(f.read()).hexdigest()
+                    if not o.endswith((".ct", ".csv")):
+                        out[o + " reads,bases"] = count_records(o)
+    finally:
+        os.chdir(cwd)
+    out["n_unique"] = n_unique
+    return out
+
+
+def oracle_first_batch(pairs_fa, ct, dev, C=20):
+    """The first batch's keep decisions of normalize-by-median on a table
+    loaded from the phase-4 .ct, replayed in numpy as khmer_tpu's
+    _drain_host replays them (hashes in numpy, counts before the batch
+    from K3, a sequential tally), against Countgraph.diginorm_batch."""
+    from khmer_tpu_torch import Countgraph, _u64
+
+    seqs = fixed_records(pairs_fa, 2 * BATCH, 114, 13)
+    lut = np.zeros(256, np.uint64)
+    for ch, code in ((b"A", 0), (b"T", 1), (b"C", 2), (b"G", 3)):
+        lut[ch[0]] = code
+    codes = lut[np.frombuffer("".join(seqs).encode(), np.uint8).reshape(
+        len(seqs), -1)]
+    w = codes.shape[1] - K + 1
+    f = np.zeros((len(seqs), w), np.uint64)
+    r = np.zeros_like(f)
+    for j in range(K):
+        c = codes[:, j:j + w]
+        f = (f << np.uint64(2)) | c
+        r |= (c ^ np.uint64(1)) << np.uint64(2 * j)
+    uniq, inv = np.unique(np.minimum(f, r), return_inverse=True)
+    inv = inv.reshape(len(seqs), w)
+    cg = Countgraph.load(ct, device=dev)
+    pre = cg.storage.get_lanes(_u64.as_tensor(uniq, dev)).cpu().numpy()
+    pre = pre.astype(np.int64)
+    tally = np.zeros(uniq.size, np.int64)
+    want = np.zeros(BATCH, np.uint8)
+    for b in range(BATCH):
+        for row in inv[2 * b: 2 * b + 2]:
+            if np.count_nonzero(pre[row] + tally[row] >= C) < (w + 1) // 2:
+                want[b] = 1
+                break
+        if want[b]:
+            np.add.at(tally, inv[2 * b: 2 * b + 2].reshape(-1), 1)
+    got = cg.diginorm_batch([(seqs[2 * i], seqs[2 * i + 1])
+                             for i in range(BATCH)], C).cpu().numpy()
+    if not np.array_equal(got, want):
+        fail("diginorm_batch's first batch differs from the numpy replay "
+             "in {} of {} bundles".format(int((got != want).sum()), BATCH))
+    log("numpy replay of the first batch: {} of {} bundles kept, equal to "
+        "diginorm_batch on the card".format(int(want.sum()), BATCH))
+
+
+def make_slice2_files(seed, tmp):
+    """The phase-5 file and its first 100,000 reads (count-median's)."""
+    pairs_fa = os.path.join(tmp, "pairs.fa")
+    head_fa = os.path.join(tmp, "head.fa")
+    t0 = time.perf_counter()
+    span = make_pairs(pairs_fa, seed, SLICE2_READS, SLICE2_COVERAGE)
+    with open(pairs_fa, "rb") as f, open(head_fa, "wb") as g:
+        g.write(f.read(100_000 * 114))
+    n_bases = SLICE2_READS * 100
+    log("phase 5: {} reads of 100 bp in pairs ({} bases, {}x over the "
+        "first {} bases of the phase-4 genome, 0.5% substitutions), "
+        "{:.1f} s to write".format(SLICE2_READS, n_bases, SLICE2_COVERAGE,
+                                   span, time.perf_counter() - t0))
+    return pairs_fa, head_fa
+
+
+def run_slice2(card, dev, tmp, ct, pairs_fa, head_fa):
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    oracle_first_batch(pairs_fa, ct, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = slice2_scripts(os.path.join(tmp, "s2_kernels"), pairs_fa, head_fa,
+                         ct, dev, True, card)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 5 launches: {}".format(json.dumps(launches)))
+    log("phase 5 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in SLICE2_PATH if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the slice-2 path: {}".format(missing))
+    for name, wall in got["walls"].items():
+        reads = 100_000 if name == "count-median" else SLICE2_READS
+        busy = got["busy"].get(name)
+        log("{}: {:.3f} s (profiled), {:.0f} reads/s, {:.2f} Mbases/s, "
+            "device busy {} [{}]".format(
+                name, wall, reads / wall, reads * 100 / wall / 1e6,
+                "not measured" if busy is None else
+                "{:.3f} s = {:.1f}%".format(busy, 100 * busy / wall), card))
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = slice2_scripts(os.path.join(tmp, "s2_plain"), pairs_fa,
+                             head_fa, ct, dev, False, card)
+    log("phase 5 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    keys = [k for k in got if k not in ("walls", "busy")]
+    for k in keys:
+        if got[k] != ref[k]:
+            fail("slice-2 path differs from its plain run in {}: {} vs {}"
+                 .format(k, got[k], ref[k]))
+    log("kernels == plain on the card: {}".format(json.dumps(
+        {k: got[k] for k in keys})))
+    kept = got["pairs.fa.keep reads,bases"][0]
+    if not 0 < kept < SLICE2_READS:
+        fail("normalize-by-median kept {} of {} reads".format(
+            kept, SLICE2_READS))
+    return launches
 
 
 def main():
@@ -737,6 +1120,14 @@ def main():
     rec = check_kernels(args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="khmer_smoke_") as tmp:
         launches = main_path(args.seed, card, dev, tmp)
+        ct = os.path.join(tmp, "kernels", "reads.ct")
+        pairs_fa, head_fa = make_slice2_files(args.seed, tmp)
+        check_slice2_kernels(dev, ct, os.path.join(tmp, "reads.fa"),
+                             pairs_fa, rec)
+        slice2 = run_slice2(card, dev, tmp, ct, pairs_fa, head_fa)
+    # each kernel's launches by the path that runs it: slice 1's by the
+    # main path (phase 4), slice 2's by the phase-5 path
+    launches.update({k: slice2[k] for k in SOURCES if k not in MAIN_PATH})
 
     from khmer_tpu_torch.kernels import KERNELS_PER_CALL
 

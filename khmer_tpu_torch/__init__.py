@@ -5,8 +5,13 @@ imports nothing of it.  Tables live on a CUDA device unless the caller
 passes ``device="cpu"``, where every kernel runs as its plain PyTorch
 version (khmer_tpu_torch/kernels/plain.py).
 
-This slice covers load-into-counting and abundance-dist(-single):
-Countgraph and Nodegraph over the exact 2-bit hash.
+Ported so far: Countgraph and Nodegraph over the exact 2-bit hash, with
+the scripts load-into-counting and abundance-dist(-single) (slice 1) and
+normalize-by-median, trim-low-abund, filter-abund(-single) and
+count-median (slice 2), each as ``khmer_tpu_torch.scripts.<name>.main``
+(``main(argv, device=None)``), and the read-level queries they use
+(``count_rows``, ``get_median_count(_batch)``, ``median_at_least(_batch)``,
+``trim_on_abundance``, ``diginorm_batch``, ``trim_pass1_batch``, ...).
 """
 
 from collections import namedtuple
@@ -15,10 +20,15 @@ import sys
 
 from khmer_tpu_torch._version import __version__
 from khmer_tpu_torch.graph import Countgraph, Nodegraph
+from khmer_tpu_torch.io.fastx import FastxReader, Read
 from khmer_tpu_torch.io.oxli_format import FILETYPES
 
-__all__ = ["Countgraph", "Nodegraph", "__version__",
-           "calc_expected_collisions", "extract_countgraph_info"]
+__all__ = ["Countgraph", "FastxReader", "Nodegraph", "Read", "ReadParser",
+           "__version__", "calc_expected_collisions",
+           "extract_countgraph_info"]
+
+# khmer's name for its read parser (khmer_tpu/__init__.py:60)
+ReadParser = FastxReader
 
 _buckets_per_byte = {
     # parity with reference khmer/__init__.py:86-93

@@ -1,5 +1,6 @@
 """k-mer table layer: the subset of khmer_tpu/hashtable.py that
-load-into-counting and abundance-dist(-single) use.
+load-into-counting, abundance-dist(-single), normalize-by-median,
+trim-low-abund, filter-abund(-single) and count-median use.
 
 Device dataflow: the native loader (or the Python _FlatBatcher) cuts the
 cleaned 2-bit code stream into flat chunks with a per-window mask; per
@@ -10,7 +11,17 @@ of every earlier chunk), so the deferred sort-and-combine counter of
 khmer_tpu/ops/deferred.py is not needed for the counts.  Its cycle and
 ledger bookkeeping does decide abundance_distribution's membership
 windows, so _DeferSchedule mirrors it there.
+
+Read-level queries pad rows as khmer_tpu does and read every window's
+count with kernel K5, which hashes and reads in one pass.  The
+streaming filters take a batch of read bundles per call: K1 hashes it,
+the batch's distinct k-mers get ids (a sort) and K3 reads their counts
+before the batch, kernel K6 (normalize-by-median) or K7 (trim-low-abund)
+takes the sequential per-bundle decision in one block, and K2 adds the
+taken bundles' tally to the sketch once.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -19,7 +30,9 @@ from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import KSIZE_MAX, MAX_BIGCOUNT, MAX_KCOUNT
 from khmer_tpu_torch.io import oxli_format
 from khmer_tpu_torch.ops import encode as enc
-from khmer_tpu_torch.ops.hashing import chunk_hashes, forward_hash
+from khmer_tpu_torch.ops.hashing import (chunk_hashes, forward_hash,
+                                         kmer_hashes_2bit, row_hashes_counts)
+from khmer_tpu_torch.ops.sketch_ops import sketch_update
 from khmer_tpu_torch.primes import get_n_primes_near_x
 
 # bases per device chunk; any size gives the same table, counts and
@@ -35,6 +48,9 @@ _DEAD = (1 << 63) - 1
 # bucket is smaller than MIN_BUCKET lanes (ops/deferred.py:113)
 ROW_PAYLOAD = 1 << 14
 MIN_BUCKET = 1 << 14
+# the most a distinct k-mer adds to its bins in one batch flush
+# (khmer_tpu/ops/deferred.py:78); bins past it read as saturated anyway
+TOTAL_CLAMP = 1 << 20
 
 
 def _pow2(n):
@@ -58,6 +74,42 @@ def _first_of_runs(keys, pos=None):
     first[1:] = keys[1:] != keys[:-1]
     order = order[first]
     return keys[first], order if pos is None else pos[order]
+
+
+def _row_width(max_len, k):
+    """khmer_tpu's padded row width for rows of at most max_len codes: a
+    power of two, at least 64, plus k (hashtable.py:1103-1106)."""
+    return max(1 << max(max_len - 1, 1).bit_length(), 64) + k
+
+
+def _pad_rows(seqs, k, min_rows=1):
+    """Raw sequences as khmer_tpu pads them: uint8 2-bit codes [B, L] and
+    int32 lengths [B], with B the least power of two >= len(seqs) (and
+    >= min_rows) and L = _row_width; rows past the sequences are empty."""
+    n = len(seqs)
+    lens = np.fromiter(map(len, seqs), np.int64, n)
+    L = _row_width(int(lens.max()) if n else 1, k)
+    B = max(_pow2(n), min_rows)
+    data = np.zeros((B, L), np.uint8)
+    codes = enc.encode_sequence("".join(seqs))
+    starts = np.repeat(np.arange(n, dtype=np.int64) * L - np.cumsum(lens)
+                       + lens, lens)
+    data.reshape(-1)[starts + np.arange(codes.size)] = codes
+    lengths = np.zeros(B, np.int32)
+    lengths[:n] = lens
+    return data, lengths
+
+
+def _batch_ids(hashes, valid):
+    """Rank of every valid window's hash among the batch's distinct
+    hashes (khmer_tpu/hashtable.py:794-805): (int32 ids shaped like
+    hashes, 0 where not valid; the distinct hashes, ascending by their
+    unsigned value)."""
+    keys, inv = torch.unique(_u64.sort_key(hashes[valid]),
+                             return_inverse=True)
+    ids = torch.zeros(hashes.shape, dtype=torch.int32, device=hashes.device)
+    ids[valid] = inv.to(torch.int32)
+    return ids, _u64.sort_key(keys)
 
 
 class _Ledger:
@@ -367,6 +419,234 @@ class Hashtable:
         return [int(c) for c in
                 self.storage.get_batch(self._hash_array(sequence))]
 
+    def _upload(self, arr):
+        """A host numpy array on the table's device, through pinned memory
+        on the card."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _row_counts(self, sequences, want_hashes=False):
+        """K5 over the sequences padded as khmer_tpu pads them: (uint16
+        counts [B, W], int64 hashes [B, W] or None, bool valid [B, W]) on
+        the device, read without the loaded bigcount overlay, as
+        khmer_tpu's row functions read them (_read_spec)."""
+        codes, lengths = _pad_rows(sequences, self._ksize)
+        st = self.storage
+        return row_hashes_counts(self._upload(codes), self._upload(lengths),
+                                 self._ksize, st._geom, st.table,
+                                 st.read_cap(), want_hashes)
+
+    def _hash_count_rows(self, sequences):
+        """Per-sequence (uint64 hashes, uint16 counts) numpy pairs for a
+        batch of sequences, in one K5 call."""
+        if not sequences:
+            return []
+        counts, hashes, _ = self._row_counts(sequences, want_hashes=True)
+        counts = counts.cpu().numpy()
+        hashes = _u64.to_numpy(hashes)
+        out = []
+        for i, s in enumerate(sequences):
+            w = max(len(s) - self._ksize + 1, 0)
+            out.append((hashes[i, :w], counts[i, :w]))
+        return out
+
+    def count_rows(self, sequences):
+        """Per-sequence uint16 count arrays in one K5 call, which fetches
+        counts only (2 B per k-mer)."""
+        if not sequences:
+            return []
+        counts = self._row_counts(sequences)[0].cpu().numpy()
+        return [counts[i, :max(len(s) - self._ksize + 1, 0)]
+                for i, s in enumerate(sequences)]
+
+    def get_min_count(self, sequence):
+        # reference quirk: the running minimum starts at MAX_KCOUNT, so the
+        # result never exceeds 255 even with bigcounts (hashtable.cc:425-443)
+        return min(MAX_KCOUNT, min(self.get_kmer_counts(sequence)))
+
+    def get_max_count(self, sequence):
+        return max(self.get_kmer_counts(sequence))
+
+    def get_median_count(self, sequence):
+        """(median, average, stddev) of k-mer counts
+        (hashtable.cc:307-339; median = sorted[n/2], population stddev)."""
+        counts = np.asarray(self.get_kmer_counts(sequence), np.float64)
+        if counts.size == 0:
+            raise ValueError("no k-mer counts for this string; too short?")
+        return _median_avg_std(counts)
+
+    def get_median_count_batch(self, sequences):
+        """get_median_count for a batch of sequences in one K5 call:
+        a list of (median, average, stddev); (0, 0.0, 0.0) for a
+        sequence shorter than k."""
+        out = []
+        for _, counts in self._hash_count_rows(sequences):
+            counts = np.asarray(counts, np.float64)
+            out.append(_median_avg_std(counts) if counts.size
+                       else (0, 0.0, 0.0))
+        return out
+
+    def median_at_least(self, sequence, cutoff):
+        """True when >= half the k-mers have count >= cutoff
+        (hashtable.cc:341-370)."""
+        self._valid_sequence(sequence)
+        counts = self.storage.get_batch(self._hash_array(sequence))
+        min_req = int(0.5 + counts.size / 2.0)
+        return bool((counts >= cutoff).sum() >= min_req)
+
+    def median_at_least_batch(self, sequences, cutoff):
+        """median_at_least for a batch of sequences in one K5 call and
+        one row reduction (khmer_tpu/hashtable.py:_make_median_at_least_fn):
+        a bool numpy array, False for a sequence shorter than k."""
+        if not sequences:
+            return np.zeros(0, bool)
+        counts, _, valid = self._row_counts(sequences)
+        hits = ((counts.to(torch.int32) >= cutoff) & valid).sum(1)
+        n = valid.sum(1)
+        out = (hits >= (n + 1) // 2) & (n > 0)
+        return out.cpu().numpy()[:len(sequences)]
+
+    def _trim_where(self, sequence, bad_mask):
+        """Shared trim logic (hashtable.cc:503-570), including the
+        reference quirk that a single-k-mer sequence always trims to 0."""
+        n = bad_mask.size
+        if n == 1:
+            return "", 0
+        bad = np.nonzero(bad_mask)[0]
+        if bad.size == 0:
+            return sequence, len(sequence)
+        first = int(bad[0])
+        if first == 0:
+            return "", 0
+        trim_at = first + self._ksize - 1
+        return sequence[:trim_at], trim_at
+
+    def trim_on_abundance(self, sequence, abundance):
+        """Trim at the first k-mer with count below `abundance`."""
+        self._valid_sequence(sequence)
+        counts = self.storage.get_batch(self._hash_array(sequence))
+        return self._trim_where(sequence, counts < abundance)
+
+    def trim_below_abundance(self, sequence, abundance):
+        """Trim at the first k-mer with count above `abundance`."""
+        self._valid_sequence(sequence)
+        counts = self.storage.get_batch(self._hash_array(sequence))
+        return self._trim_where(sequence, counts > abundance)
+
+    def find_spectral_error_positions(self, sequence, max_count):
+        """Positions of low-abundance k-mer stretches
+        (hashtable.cc:572-625)."""
+        self._valid_sequence(sequence)
+        counts = self.storage.get_batch(self._hash_array(sequence))
+        n = counts.size
+        posns = []
+        i = 0
+        while i < n and counts[i] <= max_count:
+            i += 1
+        if i == n:
+            return posns
+        if i > 0:
+            posns.append(i - 1)
+        j = i + 1
+        while j < n:
+            if counts[j] <= max_count:
+                posns.append(j + self._ksize - 1)
+                j += 1
+                while j < n and counts[j] <= max_count:
+                    j += 1
+            j += 1
+        return posns
+
+    # -- streaming filters: one batch of read bundles per call ------------
+
+    def _chain_batch(self, seq_pairs, chain):
+        """One batch step of normalize-by-median or trim-low-abund
+        (khmer_tpu/hashtable.py:_make_diginorm_fn, _make_trim_pass1_fn):
+        the bundles' rows (pairs, a missing mate an empty row that is not
+        real) padded as khmer_tpu pads them, K1 hashes, in-batch ids
+        (_batch_ids), K3 reads the distinct k-mers' counts before the
+        batch, and `chain(ids, valid, real, pre)` (K6 or K7) returns the
+        bundles' flags, a bool [B] of the bundles whose k-mers it tallied,
+        and the tally.  The tally then goes into the sketch in one K2
+        call (_flush_tally).  Returns what chain returned."""
+        rows, real = [], np.zeros(2 * len(seq_pairs), np.uint8)
+        for i, (s0, s1) in enumerate(seq_pairs):
+            rows += [s0, s1 if s1 is not None else ""]
+            real[2 * i] = 1
+            real[2 * i + 1] = s1 is not None
+        codes, lengths = _pad_rows(rows, self._ksize, min_rows=2)
+        realarr = np.zeros(codes.shape[0], np.uint8)
+        realarr[:real.size] = real
+        h, valid = kmer_hashes_2bit(self._upload(codes),
+                                    self._upload(lengths), self._ksize)
+        ids, keys = _batch_ids(h, valid)
+        del h
+        valid = valid.to(torch.uint8)
+        out = chain(ids, valid, self._upload(realarr),
+                    self.storage.get_lanes(keys))
+        self._flush_tally(keys, ids, valid, *out[-2:])
+        return out[:-2]
+
+    def _flush_tally(self, keys, ids, valid, taken, tally):
+        """Add the tallied bundles' k-mers to the sketch with the exact
+        claim rule (khmer_tpu/hashtable.py:_windowed_claim_flush): each
+        distinct k-mer once, weighted by its tally clamped at TOTAL_CLAMP,
+        in order of its first window in a tallied bundle, in one K2 call.
+        As in khmer_tpu, this flush tracks no bigcount candidates."""
+        lanes = valid.bool() & taken.repeat_interleave(2)[:, None]
+        pos = torch.nonzero(lanes.reshape(-1)).squeeze(1)
+        first = torch.full((keys.numel(),), pos.numel(), dtype=torch.int64,
+                           device=keys.device)
+        first.scatter_reduce_(0, ids.reshape(-1)[pos].to(torch.int64),
+                              torch.arange(pos.numel(), device=pos.device),
+                              "amin")
+        order = torch.argsort(first)[:int((first < pos.numel()).sum())]
+        weights = tally[order].clamp(max=TOTAL_CLAMP)
+        st = self.storage
+        sketch_update(st._geom, st.table, st._n_unique, keys[order], weights)
+        st._loaded_occupied = None
+
+    def diginorm_batch(self, seq_pairs, desired_coverage):
+        """normalize-by-median over one batch of read bundles
+        (khmer_tpu/hashtable.py:1128-1180): K6 decides keep or drop per
+        bundle with the reference's sequential semantics, and the kept
+        reads' k-mers go into the sketch (exact n_unique claim rule).
+        Returns the uint8 keep flags [len(seq_pairs)] on the device.
+
+        seq_pairs: list of (seq0, seq1_or_None) cleaned sequences."""
+        def chain(ids, valid, real, pre):
+            keep, tally = kernels.diginorm_chain(ids, valid, real, pre,
+                                                 desired_coverage)
+            return keep, keep != 0, tally
+
+        return self._chain_batch(seq_pairs, chain)[0][:len(seq_pairs)]
+
+    def trim_pass1_batch(self, seq_pairs, trim_at_coverage,
+                         diginorm_coverage=None, cutoff=2):
+        """trim-low-abund's first pass over one batch of read bundles
+        (khmer_tpu/hashtable.py:1182-1240): K7 gives each bundle's branch
+        (0 skip / 1 trim now / 2 saved, whose k-mers go into the sketch)
+        and each row's first window whose count at its turn is below
+        cutoff (nw when none).  Returns (uint8 branch
+        [len(seq_pairs)], int32 first_bad [B2]) on the device.  A real
+        read shorter than k raises ValueError before any upload."""
+        k = self._ksize
+        for pair in seq_pairs:
+            for s in pair:
+                if s is not None and len(s) < k:
+                    raise ValueError("no k-mer counts; read too short?")
+
+        def chain(ids, valid, real, pre):
+            branch, first_bad, tally = kernels.trim_chain(
+                ids, valid, real, pre, trim_at_coverage, diginorm_coverage,
+                cutoff)
+            return branch, first_bad, branch == 2, tally
+
+        branch, first_bad = self._chain_batch(seq_pairs, chain)
+        return branch[:len(seq_pairs)], first_bad
+
     # -- abundance distribution -------------------------------------------
 
     def abundance_distribution(self, parser_or_filename, tracking,
@@ -522,3 +802,11 @@ class Hashtable:
         obj._ksize = ksize
         obj.storage = store
         return obj
+
+
+def _median_avg_std(counts):
+    """(median = sorted[n // 2], average, population stddev) of a float64
+    array of counts (hashtable.cc:307-339)."""
+    avg = float(counts.mean())
+    stddev = float(math.sqrt(((counts - avg) ** 2).mean()))
+    return int(np.sort(counts)[counts.size // 2]), avg, stddev

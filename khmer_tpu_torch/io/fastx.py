@@ -1,5 +1,5 @@
-"""Host-side FASTA/FASTQ reading (a copy of khmer_tpu/io/fastx.py without
-the pair iteration and the writers).
+"""Host-side FASTA/FASTQ reading and writing (a copy of
+khmer_tpu/io/fastx.py without the pair iteration).
 
 Parity notes: the reference parses reads with SeqAn behind a spin-locked
 ReadParser (src/oxli/read_parsers.cc:336-361).  Here the parser's job is
@@ -286,3 +286,26 @@ class FastxReader:
         if self._stream not in (sys.stdin.buffer,):
             self._stream.close()
         self._done = True
+
+
+def write_record(record, fileobj):
+    """Write one record in FASTA/FASTQ (follows khmer/utils.py:172-187)."""
+    quality = getattr(record, "quality", None)
+    if quality is not None:
+        recstr = "@{0}\n{1}\n+\n{2}\n".format(
+            record.name, record.sequence, quality)
+    else:
+        recstr = ">{0}\n{1}\n".format(record.name, record.sequence)
+    try:
+        fileobj.write(bytes(recstr, "ascii"))
+    except TypeError:
+        fileobj.write(recstr)
+
+
+def screed_open(filename):
+    """screed.open stand-in for the script layer: same record stream
+    as FastxReader but yields NOTHING on empty input instead of
+    raising (reference scripts using screed tolerate empty files;
+    those using ReadParser do not)."""
+    return FastxReader(filename, raise_on_empty=False,
+                       strict_fastq=True)

@@ -21,7 +21,8 @@ import torch
 from khmer_tpu_torch.kernels import _build, plain
 
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
-           "abund_hist", "bin_scatter_add")
+           "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
+           "trim_chain")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # sketch_update is the partitioned update of csrc/sketch.cu: count,
 # bucket scan, bucket, partition count, two scan launches, place, apply,
@@ -217,3 +218,89 @@ def bin_scatter_add(table, idx, vals):
                 idx.data_ptr(), vals.data_ptr(), n, bad.data_ptr())
         if int(bad):
             raise IndexError("bin_scatter_add: bin index out of range")
+
+
+def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
+               want_hashes=False):
+    """K5: canonical hash and count of every window of a padded batch of
+    rows, codes uint8 [B, L] with lengths int32 [B] (each <= L).  Returns
+    (uint16 counts [B, W], capped at cap, 0 for a window that runs past
+    its row's length; int64 hashes [B, W] when want_hashes, else None),
+    W = L - k + 1; see csrc/rows.cu."""
+    dev = table.device
+    _check_geometry(table, sizes, offsets, recips)
+    _check("codes", codes, torch.uint8, dev)
+    _check("lengths", lengths, torch.int32, dev)
+    if codes.dim() != 2 or lengths.shape != codes.shape[:1] or \
+            not 1 <= k <= 32 or codes.shape[1] < k:
+        raise ValueError("row_counts: need codes [B, L >= k], lengths [B] "
+                         "and 1 <= k <= 32")
+    if dev.type != "cuda":
+        return plain.row_counts(codes, lengths, k, table, sizes, offsets,
+                                recips, cap, want_hashes)
+    B, L = codes.shape
+    W = L - k + 1
+    counts = torch.empty((B, W), dtype=torch.uint16, device=dev)
+    hashes = torch.empty((B, W), dtype=torch.int64, device=dev) \
+        if want_hashes else None
+    if B:
+        _launch("row_counts", codes.data_ptr(), lengths.data_ptr(), B, L, k,
+                table.data_ptr(), sizes.numel(), sizes.data_ptr(),
+                offsets.data_ptr(), recips.data_ptr(), int(cap),
+                counts.data_ptr(),
+                hashes.data_ptr() if want_hashes else None)
+    return counts, hashes
+
+
+def _check_chain(ids, valid, real, pre):
+    dev = ids.device
+    _check("ids", ids, torch.int32, dev)
+    _check("valid", valid, torch.uint8, dev)
+    _check("real", real, torch.uint8, dev)
+    _check("pre", pre, torch.uint16, dev)
+    if ids.dim() != 2 or ids.shape[0] % 2 or valid.shape != ids.shape or \
+            real.shape != ids.shape[:1]:
+        raise ValueError("chain: need ids and valid [2B, nw], real [2B]")
+    return dev, ids.shape[0] // 2, ids.shape[1]
+
+
+def diginorm_chain(ids, valid, real, pre, C):
+    """K6: normalize-by-median's keep decision over B bundles of two rows
+    (ids int32 [2B, nw]: each valid window's rank among the batch's
+    distinct k-mers; valid uint8 [2B, nw]; real uint8 [2B]; pre uint16
+    [n_distinct]: each distinct k-mer's count before the batch), in
+    bundle order.  Returns (uint8 keep [B], int32 tally [n_distinct]: the
+    kept bundles' valid windows per k-mer); see csrc/chain.cu."""
+    dev, B, nw = _check_chain(ids, valid, real, pre)
+    if dev.type != "cuda":
+        return plain.diginorm_chain(ids, valid, real, pre, C)
+    tally = torch.zeros(pre.numel(), dtype=torch.int32, device=dev)
+    keep = torch.empty(B, dtype=torch.uint8, device=dev)
+    if B:
+        _launch("diginorm_chain", ids.data_ptr(), valid.data_ptr(),
+                real.data_ptr(), pre.data_ptr(), B, nw, int(C),
+                tally.data_ptr(), keep.data_ptr())
+    return keep, tally
+
+
+def trim_chain(ids, valid, real, pre, trim_at, dn_cov, cutoff):
+    """K7: trim-low-abund's pass-1 branch over B bundles (inputs as
+    diginorm_chain): 0 skip (only when dn_cov is not None), 1 trim now, 2
+    save; only saved bundles add to tally.  Returns (uint8 branch [B],
+    int32 first_bad [2B]: each row's first valid window whose count is
+    below cutoff, nw if none; int32 tally [n_distinct]); see
+    csrc/chain.cu."""
+    dev, B, nw = _check_chain(ids, valid, real, pre)
+    if dev.type != "cuda":
+        return plain.trim_chain(ids, valid, real, pre, trim_at, dn_cov,
+                                cutoff)
+    tally = torch.zeros(pre.numel(), dtype=torch.int32, device=dev)
+    branch = torch.empty(B, dtype=torch.uint8, device=dev)
+    first_bad = torch.empty(2 * B, dtype=torch.int32, device=dev)
+    if B:
+        _launch("trim_chain", ids.data_ptr(), valid.data_ptr(),
+                real.data_ptr(), pre.data_ptr(), B, nw, int(trim_at),
+                0 if dn_cov is None else int(dn_cov), dn_cov is not None,
+                int(cutoff), tally.data_ptr(), branch.data_ptr(),
+                first_bad.data_ptr())
+    return branch, first_bad, tally

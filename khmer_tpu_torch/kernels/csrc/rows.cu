@@ -1,0 +1,135 @@
+// K5 row_counts: the canonical hash and the count of every window of a
+// padded batch of rows.
+//
+// Replaces khmer_tpu/hashtable.py:_make_row_hashes_counts_fn (:472),
+// _make_row_counts_fn (:484) and the hash + count part of
+// _make_median_at_least_fn (:643): kmer_hashes_2bit over a [B, L] u8 batch
+// of 2-bit codes with lengths[B], then sketch_get of every window.  Output:
+// counts[B, W] u16 (W = L - k + 1), 0 for a window that is not valid (one
+// that runs past its row's length), and on request hashes[B, W] u64.
+//
+// Design: K1's packed tile and K3's gather in one pass, so the hashes
+// never go through device memory when only counts are wanted.  The batch
+// is read as one flat stream of B * L codes.  A block stages kRowLanes of
+// them, plus the k - 1 <= 31 that follow, 16 to a u32 word in shared
+// memory (twobit.cuh), and each thread hashes kKeysPerThread neighbouring
+// window starts in O(1) each.  The window at flat lane i is column
+// i % L of row i / L; it is valid iff its column + k <= that row's length,
+// so a valid window never reads into the next row, whatever L is (L is
+// not a multiple of the tile: 148 for 100-bp reads).  Lanes in columns
+// >= W are hashed and dropped: (L - W) / L of the work (13% at L = 148).
+// Then common.cuh's min_over_tables issues every table's load of the
+// thread's valid windows before any min, and the counts (and hashes) are
+// stored at [row, column] of the [B, W] outputs.
+//
+// Bound: the larger of its bytes and its random sectors.  Bytes: per lane
+// 1 (code) read and 2 (count) written, 8 more with hashes, 4 (length) a
+// row; and the T 4-byte bins of each valid window, each a random 32-byte
+// sector of a table far larger than L2.  chip_smoke.py counts the bytes
+// with each bin read once.
+
+#include "twobit.cuh"
+
+namespace {
+
+using namespace twobit;
+
+constexpr int kRowThreads = 256;
+constexpr int kRowLanes = kRowThreads * kKeysPerThread;  // lanes per block
+constexpr int kRowWords = kRowLanes / 16 + 2;  // packed codes, with the halo
+
+template <int TM>
+__global__ void __launch_bounds__(kRowThreads)
+row_counts_kernel(const uint8_t* __restrict__ codes,
+                  const int* __restrict__ lengths, long long n, int L,
+                  int k, bool vec, const unsigned* __restrict__ table, int T,
+                  const long long* __restrict__ sizes,
+                  const long long* __restrict__ offs,
+                  const u64* __restrict__ recips, unsigned cap,
+                  uint16_t* __restrict__ counts, u64* __restrict__ hashes) {
+    __shared__ unsigned word[kRowWords];
+    __shared__ Geometry g;
+    const long long base = (long long)blockIdx.x * kRowLanes;
+    const int t = threadIdx.x;
+    if (t < kRowWords)
+        word[t] = pack16(load16(codes, base + 16 * t, n, vec));
+    load_geometry(g, T, sizes, offs, recips);
+    __syncthreads();
+    const int W = L - k + 1;
+    const int drop = 64 - 2 * k;
+    const int o = kKeysPerThread * t;
+    const long long i0 = base + o;
+    if (i0 >= n) return;
+    long long row = i0 / L;
+    int col = (int)(i0 - row * L);
+    u64 h[kKeysPerThread];
+    bool want[kKeysPerThread];
+    long long at[kKeysPerThread];  // flat index in [B, W], or -1
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) {
+        if (j > 0 && ++col == L) {
+            col = 0;
+            row++;
+        }
+        want[j] = false;
+        at[j] = -1;
+        h[j] = 0;
+        if (i0 + j < n) {
+            h[j] = canonical(word, o + j, drop);
+            if (col < W) {
+                at[j] = row * W + col;
+                want[j] = col + k <= __ldg(lengths + row);
+            }
+        }
+    }
+    unsigned c[kKeysPerThread];
+    min_over_tables<TM>(table, g, T, h, want, c);
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) {
+        if (at[j] < 0) continue;
+        counts[at[j]] = want[j] ? (uint16_t)min(c[j], cap) : (uint16_t)0;
+        if (hashes != nullptr) hashes[at[j]] = h[j];
+    }
+}
+
+template <int TM>
+int launch(const void* codes, const void* lengths, long long n, int L, int k,
+           const void* table, int T, const void* sizes, const void* offs,
+           const void* recips, unsigned cap, void* counts, void* hashes,
+           cudaStream_t s) {
+    const unsigned blocks = (unsigned)((n + kRowLanes - 1) / kRowLanes);
+    row_counts_kernel<TM><<<blocks, kRowThreads, 0, s>>>(
+        (const uint8_t*)codes, (const int*)lengths, n, L, k,
+        (uintptr_t)codes % 16 == 0, (const unsigned*)table, T,
+        (const long long*)sizes, (const long long*)offs, (const u64*)recips,
+        cap, (uint16_t*)counts, (u64*)hashes);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// codes is [B, L] u8 and lengths [B] i32; counts ([B, W] u16) and hashes
+// ([B, W] u64, or null) are fresh allocations.
+extern "C" int khmer_row_counts(const void* codes, const void* lengths,
+                                long long B, int L, int k, const void* table,
+                                int T, const void* sizes, const void* offs,
+                                const void* recips, unsigned cap,
+                                void* counts, void* hashes, void* stream) {
+    if (k < 1 || k > 32 || L < k || T < 1 || T > kMaxTables)
+        return (int)cudaErrorInvalidValue;
+    const long long n = B * (long long)L;
+    if (n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (T) {
+    case 1: return launch<1>(codes, lengths, n, L, k, table, T, sizes, offs,
+                             recips, cap, counts, hashes, s);
+    case 2: return launch<2>(codes, lengths, n, L, k, table, T, sizes, offs,
+                             recips, cap, counts, hashes, s);
+    case 3: return launch<3>(codes, lengths, n, L, k, table, T, sizes, offs,
+                             recips, cap, counts, hashes, s);
+    case 4: return launch<4>(codes, lengths, n, L, k, table, T, sizes, offs,
+                             recips, cap, counts, hashes, s);
+    default: return launch<0>(codes, lengths, n, L, k, table, T, sizes, offs,
+                              recips, cap, counts, hashes, s);
+    }
+}

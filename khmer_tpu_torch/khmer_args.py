@@ -4,9 +4,9 @@
 # BSD 3-clause — full license text: LICENSE.third-party at repo root.
 """Common argparse constructs + the memory->table-geometry solver.
 
-The part of khmer_tpu/khmer_args.py that load-into-counting and
-abundance-dist(-single) use (parity: reference khmer/khmer_args.py).
-The table constructors take the device the tables live on.
+The part of khmer_tpu/khmer_args.py that the ported scripts use
+(parity: reference khmer/khmer_args.py).  The table constructors take
+the device the tables live on.
 """
 
 import argparse
@@ -103,6 +103,18 @@ class KhmerArgumentParser(argparse.ArgumentParser):
         if 'quiet' not in args or not args.quiet:
             info(self.prog, self._citations)
         return args
+
+
+class FileType(argparse.FileType):
+    """argparse.FileType honoring '-' as raw stdin/stdout fd."""
+
+    def __call__(self, fname):
+        if fname == '-':
+            if 'r' in self._mode:
+                fname = sys.stdin.fileno()
+            elif 'w' in self._mode:
+                fname = sys.stdout.fileno()
+        return super().__call__(fname)
 
 
 def memory_setting(label):
@@ -257,6 +269,20 @@ def check_conflicting_args(args, hashtype):
                 args.small_count = True
 
 
+def check_argument_range(low, high, parameter_name):
+    """argparse type factory enforcing low <= value < high."""
+
+    def _in_range(value):
+        value = int(value)
+        if not low <= value < high:
+            print_error("\n** ERROR: khmer only supports "
+                        "%i <= %s < %i.\n" % (low, parameter_name, high))
+            sys.exit(1)
+        return value
+
+    return _in_range
+
+
 # ---------------------------------------------------------------------------
 # parser builders
 # ---------------------------------------------------------------------------
@@ -310,6 +336,11 @@ def build_counting_args(descr=None, epilog=None, citations=None):
     return parser
 
 
+def add_loadgraph_args(parser):
+    parser.add_argument('-l', '--loadgraph', metavar="filename", default=None,
+                        help='load a precomputed k-mer graph from disk')
+
+
 def calculate_graphsize(args, graphtype, multiplier=1.0):
     """Target size (buckets) of each table (khmer_args.py:504-521)."""
     if graphtype not in khmer._buckets_per_byte:
@@ -353,15 +384,51 @@ def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
         sys.exit(1)
 
     if getattr(args, 'small_count', False):
-        print_error("\n** ERROR: --small-count (SmallCountgraph) is not in "
-                    "the PyTorch port yet.")
-        sys.exit(1)
+        not_ported("--small-count (SmallCountgraph)", "slice 3")
 
     tablesize = calculate_graphsize(args, 'countgraph', multiplier=multiplier)
     cg = khmer.Countgraph(ksize, tablesize, args.n_tables, device=device)
     if hasattr(args, 'bigcount'):
         cg.set_use_bigcount(args.bigcount)
     return cg
+
+
+def create_counttable(args, ksize=None, multiplier=1.0, fp_rate=0.1,
+                      device=None):
+    """Create the table khmer_tpu's create_counttable makes for these CLI
+    args (khmer_args.py:640-680), on `device`.  The port has the exact
+    2-bit Countgraph only: -H murmur (Counttable) and --small-count
+    (SmallCountgraph) exit with an error until their slice is ported."""
+    args = _check_fp_rate(args, fp_rate)
+    _check_n_tables(args)
+    if ksize is None:
+        ksize = args.ksize
+
+    hash_function = getattr(args, 'hash_function', 'twobit-exact')
+    if hash_function == 'twobit-exact':
+        if ksize > 32:
+            print_error("\n** ERROR: hash function 'twobit-exact' only "
+                        "supports k-mer sizes <= 32.")
+            print_error("** See -H/--hash-function for alternatives.")
+            sys.exit(1)
+    elif hash_function == 'murmur':
+        not_ported("-H murmur (Counttable)", "slice 3")
+    else:
+        print_error("\n** Error, unknown hash function")
+        sys.exit(1)
+
+    if getattr(args, 'small_count', False):
+        not_ported("--small-count (SmallCountgraph)", "slice 3")
+
+    tablesize = calculate_graphsize(args, 'countgraph', multiplier=multiplier)
+    return khmer.Countgraph(ksize, tablesize, args.n_tables, device=device)
+
+
+def not_ported(feature, where):
+    """Exit with the error for a khmer_tpu feature the port lacks yet."""
+    print_error("\n** ERROR: {} is not ported to khmer_tpu_torch yet "
+                "({} of the port).".format(feature, where))
+    sys.exit(1)
 
 
 def create_matching_nodegraph(countgraph):

@@ -11,7 +11,9 @@ function):
 The scalar functions are copies of khmer_tpu/ops/hashing.py.  The
 batched hash is kernel K1 (kernels/csrc/hash2bit.cu), which emits the
 windows of a flat code chunk in stream order; the TPU kernel's u32-pair
-arithmetic and phase-major lane order are not ported.
+arithmetic and phase-major lane order are not ported.  Kernel K5
+(kernels/csrc/rows.cu) hashes padded rows and reads their counts in the
+same pass.
 """
 
 import numpy as np
@@ -112,3 +114,20 @@ def kmer_hashes_2bit(codes, lengths, k: int):
         codes.contiguous().reshape(-1),
         valid.to(torch.uint8).reshape(-1), k)
     return h.reshape(B, L)[:, :W], valid[:, :W]
+
+
+def row_hashes_counts(codes, lengths, k: int, geom, table, cap,
+                      want_hashes=False):
+    """Counts (and on request hashes) of every window of a padded [B, L]
+    uint8 code tensor with int32 lengths[B], read from a sketch (flat
+    table and its geometry) capped at cap, in one pass of kernel K5: the
+    port of khmer_tpu/hashtable.py:_make_row_hashes_counts_fn and
+    _make_row_counts_fn.  Returns (uint16 counts [B, W], int64 hashes
+    [B, W] or None, bool valid [B, W]), W = L - k + 1; a count is 0
+    where the window is not valid."""
+    if k > 32:
+        raise ValueError("k must be <= 32 for the 2-bit hash")
+    counts, hashes = kernels.row_counts(codes, lengths, k, table, *geom, cap,
+                                        want_hashes)
+    col = torch.arange(counts.shape[1], device=codes.device)
+    return counts, hashes, col[None, :] + k <= lengths[:, None]

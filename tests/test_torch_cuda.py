@@ -492,3 +492,133 @@ def test_abundance_paths_on_card(dev, tmp_path, monkeypatch, path):
     assert out[0] == out[1]
     # two overflows on each device on the overflow path, none elsewhere
     assert sum(overflows) == (4 if path == "overflow" else 0)
+
+
+# ---- K5 row_counts, K6 diginorm_chain, K7 trim_chain -------------------------
+
+
+def _rows_input(rng, B, L, k, offset):
+    """codes [B, L] as a view `offset` bytes into its buffer, and ragged
+    lengths: 0, below k, k, and up to L."""
+    buf = torch.from_numpy(rng.integers(0, 4, offset + B * L,
+                                        dtype=np.uint8))
+    lens = rng.integers(0, L + 1, B)
+    lens[:4] = [0, max(k - 1, 0), k, L][:min(4, B)]
+    return buf, torch.from_numpy(lens.astype(np.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("width", [64, 128])  # L = width + k: 84, 148 at k 20
+@pytest.mark.parametrize("k", [1, 20, 32])
+@pytest.mark.parametrize("T", [1, 4, 5])
+def test_row_counts(dev, k, width, offset, T):
+    """K5 on ragged rows, codes at an offset that is not 16-byte aligned
+    or aligned; counts at caps 255 and 65535, with and without hashes;
+    rows wider than a block's tile."""
+    rng = np.random.default_rng(k * 1000 + width + T)
+    B, L = 301, width + k
+    buf, lengths = _rows_input(rng, B, L, k, offset)
+    sizes = _primes(T)
+    table = _table(rng, sizes, 400)
+    geom = SketchSpec("byte", sizes).geometry("cpu")
+    gdev = [g.to(dev) for g in geom]
+    codes_d = buf.to(dev)[offset:].view(B, L)
+    codes = buf[offset:].view(B, L)
+    for cap in (255, 65535):
+        for want in (False, True):
+            c, h = kernels.row_counts(codes_d, lengths.to(dev), k,
+                                      table.to(dev), *gdev, cap, want)
+            pc, ph = plain.row_counts(codes, lengths, k, table, *geom, cap,
+                                      want)
+            assert torch.equal(c.cpu().to(torch.int32),
+                               pc.to(torch.int32))
+            assert (h is None) == (not want)
+            if want:
+                assert torch.equal(h.cpu(), ph)
+
+
+def _chain_input(rng, B, nw, n_distinct, repeat):
+    """ids, valid (a prefix of each row), real and pre of B bundles; with
+    `repeat`, every other bundle repeats the bundle before it; the last
+    8 bundles are pad bundles (real false, no valid window)."""
+    ids = rng.integers(0, n_distinct, (2 * B, nw)).astype(np.int32)
+    nvalid = rng.integers(0, nw + 1, 2 * B)
+    nvalid[:2] = [0, nw]
+    valid = (np.arange(nw)[None, :] < nvalid[:, None]).astype(np.uint8)
+    real = (rng.random(2 * B) < 0.9).astype(np.uint8)
+    if repeat:
+        for b in range(1, B, 2):
+            ids[2 * b: 2 * b + 2] = ids[2 * b - 2: 2 * b]
+            valid[2 * b: 2 * b + 2] = valid[2 * b - 2: 2 * b]
+            real[2 * b: 2 * b + 2] = real[2 * b - 2: 2 * b]
+    real[-16:] = 0
+    valid[-16:] = 0
+    pre = rng.integers(0, 12, n_distinct).astype(np.uint16)
+    return [torch.from_numpy(a) for a in (ids, valid, real, pre)]
+
+
+CHAIN_CASES = {  # name: (B, nw, n_distinct, repeat)
+    "repeats": (600, 81, 900, True),
+    "random": (300, 129, 20000, False),
+    "wide": (40, 700, 3000, True),  # 2 nw > 1024 threads: a thread loops
+}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+@pytest.mark.parametrize("C", [1, 3, 65535])
+def test_diginorm_chain(dev, case, C):
+    """K6 against its plain version: bundles that repeat the bundle
+    before them (whose windows read the tally it just added), pad
+    bundles, rows with no valid window, C = 1 and 65535."""
+    B, nw, n, repeat = CHAIN_CASES[case]
+    args = _chain_input(np.random.default_rng(B + C), B, nw, n, repeat)
+    keep, tally = kernels.diginorm_chain(*[a.to(dev) for a in args], C)
+    pkeep, ptally = plain.diginorm_chain(*args, C)
+    assert torch.equal(keep.cpu(), pkeep)
+    assert torch.equal(tally.cpu(), ptally)
+    if C == 3:
+        assert 0 < int(pkeep.sum()) < B
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+@pytest.mark.parametrize("trim_at,dn_cov,cutoff", [
+    (3, None, 2), (3, 5, 2), (1, 65535, 1), (65535, 1, 65535)])
+def test_trim_chain(dev, case, trim_at, dn_cov, cutoff):
+    """K7 against its plain version: branches, first_bad of every row
+    (pad rows too) and tally."""
+    B, nw, n, repeat = CHAIN_CASES[case]
+    args = _chain_input(np.random.default_rng(B + trim_at), B, nw, n,
+                        repeat)
+    out = kernels.trim_chain(*[a.to(dev) for a in args], trim_at, dn_cov,
+                             cutoff)
+    want = plain.trim_chain(*args, trim_at, dn_cov, cutoff)
+    for a, b in zip(out, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_streaming_filters_small_on_card(dev, tmp_path):
+    """normalize-by-median and trim-low-abund batch steps, count_rows and
+    median_at_least_batch on the card equal the CPU run on generated
+    reads (three batches of 256 bundles)."""
+    rng = np.random.default_rng(4)
+    genome = "".join(rng.choice(list("ACGT"), 8000))
+    reads = [genome[s:s + 100] for s in rng.integers(0, 7900, 1536)]
+    batches = [[(reads[2 * i], reads[2 * i + 1] if i % 9 else None)
+                for i in range(b * 256, (b + 1) * 256)] for b in range(3)]
+    out = []
+    for d in (dev, "cpu"):
+        dn = Countgraph(20, 20011, 4, device=d)
+        tr = Countgraph(20, 20011, 4, device=d)
+        got = []
+        for batch in batches:
+            got.append(dn.diginorm_batch(batch, 6).cpu())
+            got += [t.cpu() for t in tr.trim_pass1_batch(batch, 5, 8, 2)]
+        got.append(dn.storage.table.cpu())
+        got.append(tr.storage.table.cpu())
+        got.append(torch.tensor([dn.n_unique_kmers(), tr.n_unique_kmers()]))
+        got += [torch.from_numpy(c.astype(np.int32))
+                for c in dn.count_rows(reads[:50])]
+        got.append(torch.from_numpy(tr.median_at_least_batch(reads[:50], 4)))
+        out.append(got)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
