@@ -33,10 +33,17 @@ Phases (any failure exits non-zero; nothing is caught):
   3b. slice-2 kernels against their plain versions on the card, exact:
      K5 on 16,384 rows x 148 codes of the phase-4 reads against the
      phase-4 .ct, with and without hashes (and K1 + K3 back to back on
-     the same rows, timed beside it); K6 and K7 on the first
-     16,384-bundle batch of the phase-5 file with its pre-counts from
-     the phase-4 .ct, and on the same batch with every 8th bundle a
-     repeat of the one before it;
+     the same rows, timed beside it); K6 and K7 (also K7 with dn_cov)
+     timed on five inputs: the first 16,384-bundle batch of the phase-5
+     file with its pre-counts from the phase-4 .ct, the same batch with
+     pre all zero (the first batch of a fresh run), the batch with every
+     8th bundle a repeat of the one before it, 16,384 pairs sorted by
+     position (each 10 bases after the one before it, pre all zero:
+     every bundle taken, each sharing k-mers with the eight before it),
+     and the batch's first bundle repeated 16,384 times (also at C =
+     trim_at = 65535, every bundle taken); for each, ms, us a bundle,
+     the rounds and walked bundles the kernel took (steps) and bundles
+     a step;
   5. the slice-2 path: normalize-by-median -p -C 20 --savegraph,
      trim-low-abund -C 3 -Z 18 -V, filter-abund -C 2 (phase-4 .ct),
      filter-abund-single -C 2 and count-median (phase-4 .ct, the first
@@ -48,7 +55,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (b) a numpy replay of the first batch's keep decisions from K3
      pre-counts.  K5, K6 and K7 must have been launched by this run; the
      walls, rates, device busy shares and peak device memory are
-     printed.
+     printed, and each wall split into the seconds inside
+     Countgraph.diginorm_batch / trim_pass1_batch (synchronised before
+     and after each call) and the rest (parsing, pairing, trimming,
+     writing).
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -781,10 +791,60 @@ def chain_bytes(ids, valid, n_distinct, taken_rows, extra):
             ids.shape[0] + tallied * 4 + extra)
 
 
-def check_slice2_kernels(dev, ct, reads_fa, pairs_fa, rec):
+def chain_run(fn, inputs, args):
+    """K6 / K7 (`fn`) on one input against its plain version on the card:
+    the error, CUDA-event times of both, the rounds and walked bundles the
+    kernel took (steps = rounds + walked: each walked bundle is a step of
+    its own), and the taken bundles (K6 kept, K7 saved)."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    got = getattr(kernels, fn)(*inputs, *args)
+    rounds, walked = kernels.CHAIN_ROUNDS[fn].tolist()
+    ref = getattr(plain, fn)(*inputs, *args)
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    ms = cuda_ms(lambda: getattr(kernels, fn)(*inputs, *args), 3, inner=1)
+    taken = (got[0] != 0) if fn == "diginorm_chain" else got[0] == 2
+    del got, ref
+    torch.cuda.synchronize()
+    return dict(err=err, ms=ms, us_per_bundle=1e3 * ms / BATCH,
+                rounds=rounds, walked=walked, steps=rounds + walked,
+                bundles_per_step=BATCH / (rounds + walked),
+                plain_ms=cuda_ms(lambda: getattr(plain, fn)(*inputs, *args),
+                                 1, inner=1, warmup=0),
+                taken=taken, n_taken=int(taken.sum()))
+
+
+def chain_summary(r):
+    return {k: r[k] for k in ("err", "ms", "us_per_bundle", "rounds",
+                              "walked", "steps", "bundles_per_step",
+                              "n_taken")}
+
+
+def sorted_pairs(seed, n_pairs, stride=10, readlen=100, insert=300):
+    """n_pairs read pairs as a file sorted by position holds them: pair j
+    starts stride * j bases into a random genome (its /2 mate the reverse
+    complement of the fragment's other end, `insert` bases apart), as
+    2 n_pairs sequences (str)."""
+    genome = np.random.default_rng(seed + 6).integers(
+        0, 4, stride * n_pairs + insert, dtype=np.uint8)
+    starts = stride * np.arange(n_pairs)
+    win = np.arange(readlen)
+    r1 = genome[starts[:, None] + win]
+    r2 = 3 - genome[(starts + insert - readlen)[:, None] + win][:, ::-1]
+    reads = np.frombuffer(b"ACGT", np.uint8)[
+        np.stack([r1, r2], 1).reshape(2 * n_pairs, readlen)]
+    return [r.tobytes().decode() for r in reads]
+
+
+def check_slice2_kernels(seed, dev, ct, reads_fa, pairs_fa, rec):
     """K5 on 16,384 bench rows against the phase-4 .ct; K6 and K7 on the
     first batch of the phase-5 file (pre-counts from the phase-4 .ct),
-    as it is and with every 8th bundle repeating the one before it."""
+    as it is, with pre all zero, with every 8th bundle repeating the one
+    before it and as one bundle repeated, and on pairs sorted by
+    position."""
     import torch
 
     from khmer_tpu_torch import Countgraph, kernels
@@ -846,38 +906,61 @@ def check_slice2_kernels(dev, ct, reads_fa, pairs_fa, rec):
         rep_ids[2 * b: 2 * b + 2] = rep_ids[2 * b - 2: 2 * b]
         rep_valid[2 * b: 2 * b + 2] = rep_valid[2 * b - 2: 2 * b]
     del h, codes, lengths
+    codes, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+        sorted_pairs(seed, BATCH), K, min_rows=2))
+    h, s_valid = kmer_hashes_2bit(codes, lengths, K)
+    s_ids, s_keys = _batch_ids(h, s_valid)
+    s_pre = torch.zeros(s_keys.numel(), dtype=torch.uint16, device=dev)
+    del h, codes, lengths, s_keys
+    inputs = {  # name: (ids, valid, pre)
+        "batch": (ids, valid, pre),
+        "fresh": (ids, valid, torch.zeros_like(pre)),
+        "repeat8": (rep_ids, rep_valid, pre),
+        "sorted": (s_ids, s_valid.to(torch.uint8), s_pre),
+        "identical": (ids[:2].repeat(BATCH, 1), valid[:2].repeat(BATCH, 1),
+                      pre)}
+    calls = (("diginorm_chain", "diginorm_chain", (20,)),
+             ("trim_chain", "trim_chain", (18, None, 3)),
+             ("trim_chain_dn", "trim_chain", (18, 20, 3)))
     out = {}
-    for name, fn, args in (
-            ("diginorm_chain", "diginorm_chain", (20,)),
-            ("trim_chain", "trim_chain", (18, None, 3)),
-            ("trim_chain_dn", "trim_chain", (18, 20, 3))):
-        err = 0
-        for i, v in ((rep_ids, rep_valid), (ids, valid)):
-            got = getattr(kernels, fn)(i, v, real, pre, *args)
-            ref = getattr(plain, fn)(i, v, real, pre, *args)
-            err = max([err] + [max_abs_err(a, b) for a, b in zip(got, ref)])
-        # the timed input is the batch as it is, the last one checked
-        taken = (got[0] != 0) if fn == "diginorm_chain" else got[0] == 2
-        out[name] = dict(
-            err=err, taken=int(taken.sum()),
-            ms=cuda_ms(lambda: getattr(kernels, fn)(ids, valid, real, pre,
-                                                    *args), 3, inner=1),
-            plain_ms=cuda_ms(lambda: getattr(plain, fn)(
-                ids, valid, real, pre, *args), 1, inner=1, warmup=0),
-            bytes=chain_bytes(ids, valid, pre.numel(),
-                              taken.repeat_interleave(2),
-                              BATCH + (8 * BATCH if fn == "trim_chain"
-                                       else 0)))
+    for name, fn, args in calls:
+        out[name] = {}
+        for inp, (i, v, p) in inputs.items():
+            out[name][inp] = chain_run(fn, (i, v, real, p), args)
+        if name != "trim_chain_dn":
+            # the worst case: identical bundles, every one taken
+            i, v, p = inputs["identical"]
+            out[name]["identical_all_taken"] = chain_run(
+                fn, (i, v, real, p), (65535,) + args[1:])
+        got = out[name]["batch"]
+        taken = got.pop("taken")
+        got["bytes"] = chain_bytes(ids, valid, pre.numel(),
+                                   taken.repeat_interleave(2),
+                                   BATCH + (8 * BATCH if fn == "trim_chain"
+                                            else 0))
+        for inp, r in out[name].items():
+            r.pop("taken", None)
+            log("{} {:20s} err={} ms={:.4f} us_per_bundle={:.4f} rounds={} "
+                "walked={} steps={} bundles_per_step={:.2f} plain_ms={:.4f}"
+                .format(name, inp, r["err"], r["ms"], r["us_per_bundle"],
+                        r["rounds"], r["walked"], r["steps"],
+                        r["bundles_per_step"], r["plain_ms"]))
     d = out["diginorm_chain"]
-    record("diginorm_chain", d["err"], d["ms"], d["plain_ms"], d["bytes"],
-           bundles=BATCH, nw=ids.shape[1], kept=d["taken"],
-           us_per_bundle=1e3 * d["ms"] / BATCH)
+    record("diginorm_chain", max(r["err"] for r in d.values()),
+           d["batch"]["ms"], d["batch"]["plain_ms"], d["batch"]["bytes"],
+           bundles=BATCH, nw=ids.shape[1], kept=d["batch"]["n_taken"],
+           inputs={k: chain_summary(r) for k, r in d.items()})
     t, tdn = out["trim_chain"], out["trim_chain_dn"]
-    record("trim_chain", max(t["err"], tdn["err"]), t["ms"], t["plain_ms"],
-           t["bytes"], bundles=BATCH, saved=t["taken"],
-           us_per_bundle=1e3 * t["ms"] / BATCH, dn_ms=tdn["ms"],
-           dn_saved=tdn["taken"], dn_bound_ms=bound_ms(tdn["bytes"]))
-    del cg, st, ids, valid, rep_ids, rep_valid, pre
+    record("trim_chain",
+           max(r["err"] for r in list(t.values()) + list(tdn.values())),
+           t["batch"]["ms"], t["batch"]["plain_ms"], t["batch"]["bytes"],
+           bundles=BATCH, saved=t["batch"]["n_taken"],
+           inputs={k: chain_summary(r) for k, r in t.items()},
+           dn_ms=tdn["batch"]["ms"], dn_saved=tdn["batch"]["n_taken"],
+           dn_bound_ms=bound_ms(tdn["batch"]["bytes"]),
+           dn_inputs={k: chain_summary(r) for k, r in tdn.items()})
+    del cg, st, ids, valid, rep_ids, rep_valid, pre, inputs, s_ids, \
+        s_valid, s_pre
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -959,12 +1042,34 @@ def slice2_scripts(workdir, pairs_fa, head_fa, ct, dev, profile, card):
         n_unique.append(counted(self))
         return n_unique[-1]
 
-    out = {"walls": {}, "busy": {}}
+    out = {"walls": {}, "busy": {}, "steps": {}}
+    running = []
+
+    def timed(method):
+        """Hashtable.<method>, its seconds (synchronised on both sides)
+        added to out["steps"] under the running script's name."""
+        step = getattr(Hashtable, method)
+
+        def run_step(self, *args, **kwargs):
+            sync(dev)
+            t0 = time.perf_counter()
+            got = step(self, *args, **kwargs)
+            sync(dev)
+            out["steps"][running[-1]] = out["steps"].get(running[-1], 0.0) \
+                + time.perf_counter() - t0
+            return got
+        return run_step
+
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        with mock.patch.object(Hashtable, "n_unique_kmers", n_unique_kmers):
+        with mock.patch.object(Hashtable, "n_unique_kmers", n_unique_kmers), \
+                mock.patch.object(Hashtable, "diginorm_batch",
+                                  timed("diginorm_batch")), \
+                mock.patch.object(Hashtable, "trim_pass1_batch",
+                                  timed("trim_pass1_batch")):
             for name, fn, argv, outputs in runs:
+                running.append(name)
                 sync(dev)
                 run = lambda: fn(argv, device=dev)  # noqa: E731
                 if profile:
@@ -1070,18 +1175,23 @@ def run_slice2(card, dev, tmp, ct, pairs_fa, head_fa):
     for name, wall in got["walls"].items():
         reads = 100_000 if name == "count-median" else SLICE2_READS
         busy = got["busy"].get(name)
+        steps = got["steps"].get(name, 0.0)
         log("{}: {:.3f} s (profiled), {:.0f} reads/s, {:.2f} Mbases/s, "
-            "device busy {} [{}]".format(
+            "device busy {}; inside the batch steps (diginorm_batch / "
+            "trim_pass1_batch, synchronised) {:.3f} s = {:.1f}%, the rest "
+            "(parsing, pairing, trimming, writing) {:.3f} s [{}]".format(
                 name, wall, reads / wall, reads * 100 / wall / 1e6,
                 "not measured" if busy is None else
-                "{:.3f} s = {:.1f}%".format(busy, 100 * busy / wall), card))
+                "{:.3f} s = {:.1f}%".format(busy, 100 * busy / wall),
+                steps, 100 * steps / wall, wall - steps, card))
     with mock.patch.multiple(kernels, **{name: getattr(plain, name)
                                          for name in kernels.KERNELS}):
         ref = slice2_scripts(os.path.join(tmp, "s2_plain"), pairs_fa,
                              head_fa, ct, dev, False, card)
-    log("phase 5 plain-version walls (s): {} [{}]".format(
-        json.dumps(ref["walls"]), card))
-    keys = [k for k in got if k not in ("walls", "busy")]
+    log("phase 5 plain-version walls (s): {}; inside the batch steps: {} "
+        "[{}]".format(json.dumps(ref["walls"]), json.dumps(ref["steps"]),
+                      card))
+    keys = [k for k in got if k not in ("walls", "busy", "steps")]
     for k in keys:
         if got[k] != ref[k]:
             fail("slice-2 path differs from its plain run in {}: {} vs {}"
@@ -1122,8 +1232,8 @@ def main():
         launches = main_path(args.seed, card, dev, tmp)
         ct = os.path.join(tmp, "kernels", "reads.ct")
         pairs_fa, head_fa = make_slice2_files(args.seed, tmp)
-        check_slice2_kernels(dev, ct, os.path.join(tmp, "reads.fa"),
-                             pairs_fa, rec)
+        check_slice2_kernels(args.seed, dev, ct,
+                             os.path.join(tmp, "reads.fa"), pairs_fa, rec)
         slice2 = run_slice2(card, dev, tmp, ct, pairs_fa, head_fa)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path

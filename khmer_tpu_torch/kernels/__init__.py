@@ -32,6 +32,14 @@ MAX_TABLES = 32               # khmer's -N; tested at 1, 3, 4 and 32
 MAX_RECORDS = (1 << 31) - 1   # records (lanes x tables) carry int32 offsets
 MAX_BINS = 1 << 33            # K2's bucket pass keeps a counter per bucket
                               # in shared memory
+# what the last diginorm_chain / trim_chain call on the card took: name ->
+# int32 [2] on the device, (rounds, bundles walked), written by the kernel
+# (read it after the call; the wrapper does not synchronise)
+CHAIN_ROUNDS = {}
+CHAIN_WALK_BELOW = 32    # csrc/chain.cu kWalkBelow
+CHAIN_WALK_FIRST = 1024  # csrc/chain.cu kWalkFirst
+CHAIN_MAX_ROUNDS = 63  # csrc/chain.cu kMaxRounds: a tag is round << 26 | ~b
+MAX_CHAIN_BUNDLES = (1 << 26) - 1
 _META_WORDS = 8               # csrc/sketch.cu kMetaWords
 
 
@@ -264,6 +272,28 @@ def _check_chain(ids, valid, real, pre):
     return dev, ids.shape[0] // 2, ids.shape[1]
 
 
+def _chain_scratch(name, B, n_distinct, dev):
+    """The tally and the zeroed scratch (csrc/chain.cu: state, tags for
+    two rounds, a byte per bundle) of one K6 / K7 call on the card."""
+    if B > MAX_CHAIN_BUNDLES:
+        raise ValueError("{}: {} bundles exceed {}".format(
+            name, B, MAX_CHAIN_BUNDLES))
+    # the kernel writes every tally entry; with no bundle it launches none
+    tally = (torch.empty if B else torch.zeros)(
+        n_distinct, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(
+        _build.function("khmer_chain_scratch_bytes")(B, n_distinct),
+        dtype=torch.uint8, device=dev)
+    return tally, scratch
+
+
+def _keep_rounds(name, scratch):
+    """CHAIN_ROUNDS[name]: a copy of the scratch's first two int32, the
+    rounds the call took and the bundles it walked (a copy, so that the
+    scratch is freed when the call returns)."""
+    CHAIN_ROUNDS[name] = scratch[:8].view(torch.int32).clone()
+
+
 def diginorm_chain(ids, valid, real, pre, C):
     """K6: normalize-by-median's keep decision over B bundles of two rows
     (ids int32 [2B, nw]: each valid window's rank among the batch's
@@ -274,12 +304,14 @@ def diginorm_chain(ids, valid, real, pre, C):
     dev, B, nw = _check_chain(ids, valid, real, pre)
     if dev.type != "cuda":
         return plain.diginorm_chain(ids, valid, real, pre, C)
-    tally = torch.zeros(pre.numel(), dtype=torch.int32, device=dev)
+    tally, scratch = _chain_scratch("diginorm_chain", B, pre.numel(), dev)
     keep = torch.empty(B, dtype=torch.uint8, device=dev)
     if B:
         _launch("diginorm_chain", ids.data_ptr(), valid.data_ptr(),
                 real.data_ptr(), pre.data_ptr(), B, nw, int(C),
-                tally.data_ptr(), keep.data_ptr())
+                tally.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
+                pre.numel())
+    _keep_rounds("diginorm_chain", scratch)
     return keep, tally
 
 
@@ -294,7 +326,7 @@ def trim_chain(ids, valid, real, pre, trim_at, dn_cov, cutoff):
     if dev.type != "cuda":
         return plain.trim_chain(ids, valid, real, pre, trim_at, dn_cov,
                                 cutoff)
-    tally = torch.zeros(pre.numel(), dtype=torch.int32, device=dev)
+    tally, scratch = _chain_scratch("trim_chain", B, pre.numel(), dev)
     branch = torch.empty(B, dtype=torch.uint8, device=dev)
     first_bad = torch.empty(2 * B, dtype=torch.int32, device=dev)
     if B:
@@ -302,5 +334,6 @@ def trim_chain(ids, valid, real, pre, trim_at, dn_cov, cutoff):
                 real.data_ptr(), pre.data_ptr(), B, nw, int(trim_at),
                 0 if dn_cov is None else int(dn_cov), dn_cov is not None,
                 int(cutoff), tally.data_ptr(), branch.data_ptr(),
-                first_bad.data_ptr())
+                first_bad.data_ptr(), scratch.data_ptr(), pre.numel())
+    _keep_rounds("trim_chain", scratch)
     return branch, first_bad, tally

@@ -35,13 +35,15 @@ SIGNATURES = {
                          _U, _P, _P, _P),
     "khmer_row_counts": (_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _U, _P, _P,
                          _P),
-    "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P),
+    "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P, _LL,
+                             _P),
     "khmer_trim_chain": (_P, _P, _P, _P, _I, _I, _U, _U, _I, _U, _P, _P, _P,
-                         _P),
+                         _P, _LL, _P),
 }
 # C helpers that launch nothing: name -> (argument types, result type)
 HELPERS = {
     "khmer_partition_scratch_bytes": ((_LL, _LL), _LL),
+    "khmer_chain_scratch_bytes": ((_LL, _LL), _LL),
 }
 
 _lock = threading.Lock()

@@ -596,6 +596,194 @@ def test_trim_chain(dev, case, trim_at, dn_cov, cutoff):
         assert torch.equal(a.cpu(), b)
 
 
+def _round_input(rng, kind, B, nw=17):
+    """ids, valid, real and pre of B bundles for K6 / K7's rounds (a
+    block's 32 warps take a bundle each): `random` (k-mers drawn from
+    40 B, so that nearby bundles share some; random valid prefixes, 10%
+    of rows not real), `pads` (as random, with bundles 3-6 and 34 pads,
+    real false and no valid window, among bundles still undecided), and,
+    with every window valid and every row real, `distinct` (no k-mer
+    shared), `identical` (every bundle is the first), `readers` (as
+    identical, every k-mer counted 100 times before the batch),
+    `one_shared` (k-mer 0 in every bundle, nothing else shared),
+    `last_warp` (distinct, but bundle 31, the last warp of the first
+    block, holds a k-mer of bundle 0) and `sorted` (as reads sorted by
+    position: each bundle's first row holds the last half of the first
+    row before it, shifted by one window)."""
+    n = 2 * B * nw
+    if kind in ("random", "pads"):
+        ids = rng.integers(0, 40 * B, n)
+    else:
+        ids = rng.permutation(n) + 1
+    ids = ids.reshape(2 * B, nw).astype(np.int32)
+    valid = np.ones((2 * B, nw), np.uint8)
+    real = np.ones(2 * B, np.uint8)
+    if kind in ("random", "pads"):
+        nvalid = rng.integers(0, nw + 1, 2 * B)
+        valid = (np.arange(nw)[None, :] < nvalid[:, None]).astype(np.uint8)
+        real = (rng.random(2 * B) < 0.9).astype(np.uint8)
+    if kind == "pads":
+        for b in (3, 4, 5, 6, 34):
+            if b < B:
+                real[2 * b: 2 * b + 2] = 0
+                valid[2 * b: 2 * b + 2] = 0
+    if kind in ("identical", "readers"):
+        ids = np.ascontiguousarray(np.tile(ids[:2], (B, 1)))
+    if kind == "one_shared":
+        ids[0::2, 0] = 0
+    if kind == "last_warp" and B > 31:
+        ids[63, nw - 1] = ids[0, 0]
+    if kind == "sorted":
+        half = nw // 2
+        for b in range(1, B):
+            ids[2 * b, :half] = ids[2 * b - 2, half + 1: 2 * half + 1]
+    pre = rng.integers(0, 12, int(ids.max()) + 1).astype(np.uint16)
+    if kind == "readers":
+        pre[:] = 100
+    return [torch.from_numpy(a) for a in (ids, valid, real, pre)]
+
+
+def _ready_rounds(ids, valid):
+    """(rounds, bundles walked) of csrc/chain.cu when every bundle takes:
+    each round decides every undecided bundle whose k-mers no earlier
+    holder of a tag holds (the holders: the bundles that the round
+    before left undecided); after a round that decides fewer than
+    CHAIN_WALK_BELOW bundles, a walk decides the next undecided bundles
+    in order, CHAIN_WALK_FIRST of them, four times as many each later
+    walk, and all of them after round CHAIN_MAX_ROUNDS."""
+    B = ids.shape[0] // 2
+    lanes = valid.numpy().reshape(B, -1) != 0
+    bundle = np.broadcast_to(np.arange(B)[:, None], lanes.shape)[lanes]
+    kmer = ids.numpy().reshape(B, -1)[lanes].astype(np.int64)
+    undecided = np.ones(B, bool)
+    holders = undecided.copy()
+    rounds = walked = 0
+    limit = kernels.CHAIN_WALK_FIRST
+    while undecided.any():
+        rounds += 1
+        live = holders[bundle]
+        first = np.full(int(kmer.max(initial=0)) + 1, B)
+        np.minimum.at(first, kmer[live], bundle[live])
+        ready = undecided.copy()
+        ready[bundle[live & (first[kmer] != bundle)]] = False
+        undecided &= ~ready
+        holders = undecided.copy()
+        left = int(undecided.sum())
+        if left and (rounds == kernels.CHAIN_MAX_ROUNDS or
+                     ready.sum() < kernels.CHAIN_WALK_BELOW):
+            count = left if rounds == kernels.CHAIN_MAX_ROUNDS else \
+                min(left, limit)
+            undecided[np.flatnonzero(undecided)[:count]] = False
+            walked += count
+            limit *= 4
+    return rounds, walked
+
+
+ROUND_CASES = {  # name: (kind, B, nw)
+    "B=1": ("random", 1, 17), "B=31": ("random", 31, 17),
+    "B=32": ("random", 32, 17), "B=33": ("random", 33, 17),
+    "B=65": ("random", 65, 17),
+    "B=9000": ("random", 9000, 3),  # more bundles than the grid's warps
+    "pads": ("pads", 65, 17), "distinct": ("distinct", 65, 17),
+    "identical": ("identical", 65, 17), "readers": ("readers", 65, 17),
+    "one_shared": ("one_shared", 65, 17), "last_warp": ("last_warp", 65, 17),
+    # two walks (1,024 bundles, then the rest), across the walk's
+    # 1024-bundle chunks
+    "sorted": ("sorted", 2100, 5),
+}
+DN_PARAMS = (1, 3, 65535)
+TRIM_PARAMS = ((3, None, 2), (3, 5, 2), (1, 65535, 1), (65535, 1, 65535))
+
+
+@pytest.mark.parametrize("case", list(ROUND_CASES))
+def test_chain_rounds(dev, case):
+    """K6 / K7's rounds against the plain versions: batches of 1, 31,
+    32, 33 and 65 bundles (a block's 32 warps take one each) and of more
+    bundles than the grid has warps, pads among undecided bundles, every
+    bundle identical (one round, then the walk), identical bundles none
+    of which takes (K6 drops them all in round 1; K7 walks them, since
+    branches 0 and 1 need exact counts), one k-mer in all bundles, a
+    conflict only at the last warp of a block, and a chain of 2,100
+    bundles, each sharing k-mers with the one before it (walks of 1,024
+    bundles and of the rest, with a round between them that decides
+    none: its tags still name the walked bundles).  When every bundle
+    takes (nothing counted before the batch, thresholds at 65535, every
+    row real), K6 and K7 take exactly the rounds and walk of
+    _ready_rounds."""
+    kind, B, nw = ROUND_CASES[case]
+    args = _round_input(np.random.default_rng(B + len(case)), kind, B, nw)
+    on_card = [a.to(dev) for a in args]
+
+    def steps(name):
+        rounds, walked = kernels.CHAIN_ROUNDS[name].tolist()
+        assert 1 <= rounds <= kernels.CHAIN_MAX_ROUNDS and 0 <= walked < B
+        return rounds, walked
+
+    for C in DN_PARAMS:
+        for a, b in zip(kernels.diginorm_chain(*on_card, C),
+                        plain.diginorm_chain(*args, C)):
+            assert torch.equal(a.cpu(), b)
+        steps("diginorm_chain")
+    for p in TRIM_PARAMS:
+        for a, b in zip(kernels.trim_chain(*on_card, *p),
+                        plain.trim_chain(*args, *p)):
+            assert torch.equal(a.cpu(), b)
+        steps("trim_chain")
+    if kind == "readers":
+        kernels.diginorm_chain(*on_card, 3)
+        assert steps("diginorm_chain") == (1, 0)
+        for dn_cov in (None, 5):
+            branch = kernels.trim_chain(*on_card, 3, dn_cov, 2)[0]
+            assert int((branch == 2).sum()) == 0
+            assert steps("trim_chain") == (1, B - 1)
+    if kind in ("random", "pads", "readers"):
+        return
+    want = _ready_rounds(args[0], args[1])
+    assert want == {"distinct": (1, 0), "identical": (1, B - 1),
+                    "one_shared": (1, B - 1), "last_warp": (2, 0),
+                    "sorted": (2, B - 1)}[kind]
+    zero = on_card[:3] + [torch.zeros_like(on_card[3])]
+    keep, _ = kernels.diginorm_chain(*zero, 65535)
+    assert int(keep.sum()) == B
+    assert steps("diginorm_chain") == want
+    branch = kernels.trim_chain(*zero, 65535, None, 1)[0]
+    assert int((branch == 2).sum()) == B
+    assert steps("trim_chain") == want
+
+
+def test_chain_back_to_back(dev):
+    """Three K6 and three K7 calls queued on one stream with no
+    synchronisation between them, on two inputs in turn: each call's
+    tally and scratch come from the caching allocator, which hands a
+    call the memory an earlier call freed."""
+    rng = np.random.default_rng(7)
+    inputs = [_round_input(rng, "random", 101, 17),
+              _chain_input(rng, 200, 81, 900, True)]
+    on_card = [[a.to(dev) for a in args] for args in inputs]
+    got = []
+    for i in (0, 1, 0):
+        got.append((kernels.diginorm_chain(*on_card[i], 3)[0],
+                    kernels.trim_chain(*on_card[i], 3, 5, 2)[:2]))
+    for i, (keep, (branch, first_bad)) in zip((0, 1, 0), got):
+        assert torch.equal(keep.cpu(),
+                           plain.diginorm_chain(*inputs[i], 3)[0])
+        want = plain.trim_chain(*inputs[i], 3, 5, 2)
+        assert torch.equal(branch.cpu(), want[0])
+        assert torch.equal(first_bad.cpu(), want[1])
+
+
+def test_chain_rejects_more_bundles_than_tags_hold(dev, monkeypatch):
+    """More bundles than a tag's bundle field holds raise before any
+    launch (a small MAX_CHAIN_BUNDLES stands in for 2^26 - 1)."""
+    monkeypatch.setattr(kernels, "MAX_CHAIN_BUNDLES", 40)
+    args = [a.to(dev) for a in _round_input(np.random.default_rng(0),
+                                            "random", 41)]
+    with pytest.raises(ValueError, match="exceed"):
+        kernels.diginorm_chain(*args, 3)
+    with pytest.raises(ValueError, match="exceed"):
+        kernels.trim_chain(*args, 3, None, 2)
+
+
 def test_streaming_filters_small_on_card(dev, tmp_path):
     """normalize-by-median and trim-low-abund batch steps, count_rows and
     median_at_least_batch on the card equal the CPU run on generated
