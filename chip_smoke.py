@@ -59,11 +59,36 @@ Phases (any failure exits non-zero; nothing is caught):
      Countgraph.diginorm_batch / trim_pass1_batch (synchronised before
      and after each call) and the rest (parsing, pairing, trimming,
      writing).
+  3c. murmur kernels against their plain versions on the card, exact:
+     K8 on the first 16,384 phase-5 reads as ASCII rows (khmer_tpu's
+     padding) at k = 20, 33 and 51, both complement forms, and on the
+     same rows with a tenth of their bytes lowercase, N or IUPAC; K8's
+     flat form (bulk-consume complement) on the first 2**23-base chunk
+     of the phase-4 file; K5's murmur variant on the k = 51 rows against
+     a 4 x 1e8 Counttable holding their k-mers, with and without hashes;
+     K9 on that chunk at p = 14 (-e 0.01) and p = 16 (-e 0.005);
+  6. the murmur path at full size: unique-kmers -k 20 and -k 51 (-e
+     0.01 -R) over the phase-4 and phase-5 files in one call (a counter
+     per file and their merged total), filter-abund-single -H murmur -k
+     51 -C 2 and normalize-by-median -H murmur -k 51 -p -C 20 (no
+     --savegraph: khmer_tpu refuses to save a murmur table) on the
+     phase-5 file, -N 4 -x 1e8, through the port's script entry points.
+     Held against the same runs through the plain versions on the card
+     (HLL registers, every estimate printed, every output file's
+     sha256, reads and bases kept, n_unique identical) and against
+     exact counts: the k = 20 estimates of the phase-4 file and of the
+     total within 3% of the distinct canonical k-mers (phase 4's numpy
+     count, and its union with the phase-5 file's, counted with plain
+     torch ops on the card).  K8, K9 and K5's murmur
+     variant must have been launched by this run; walls, device busy
+     shares and peak device memory are printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
 import argparse
+import contextlib
 import gc
+import io
 import hashlib
 import json
 import math
@@ -99,6 +124,10 @@ SOURCES = {
                        "khmer_tpu/hashtable.py:760"),
     "trim_chain": ("khmer_tpu_torch/kernels/csrc/chain.cu",
                    "khmer_tpu/hashtable.py:499"),
+    "murmur_hashes": ("khmer_tpu_torch/kernels/csrc/murmur.cu",
+                      "khmer_tpu/ops/hashing.py:507"),
+    "hll_update": ("khmer_tpu_torch/kernels/csrc/hll.cu",
+                   "khmer_tpu/hllcounter.py:62"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
@@ -110,6 +139,13 @@ SLICE2_PATH = ("row_counts", "diginorm_chain", "trim_chain",
 SLICE2_READS = 1_280_000  # reads of the phase-5 file: 40x over the genome
 SLICE2_COVERAGE = 40
 BATCH = 16384  # bundles per normalize-by-median / trim-low-abund batch
+# the murmur path (phase 6): its k, K8's k in phase 3c, K9's register bits
+MURMUR_K = 51
+MURMUR_KS = (20, 33, MURMUR_K)
+HLL_PS = (14, 16)  # -e 0.01 and 0.005
+MURMUR_PATH = ("murmur_hashes", "hll_update", "row_counts", "sketch_update",
+               "sketch_get", "diginorm_chain")
+FLAT = 1 << 23  # bases of the flat chunk in phase 3c
 
 
 def fail(msg):
@@ -725,7 +761,7 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
         tracking = Nodegraph(K, 1, 1, primes=cg.hashsizes(), device=dev)
         device_share("histogram",
                      lambda: cg.abundance_distribution(fa, tracking), card)
-    return launches
+    return launches, uniq
 
 
 def device_share(name, fn, card):
@@ -1205,6 +1241,371 @@ def run_slice2(card, dev, tmp, ct, pairs_fa, head_fa):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the murmur kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def mixed_bytes(byts, seed, share=0.1):
+    """A copy of ASCII rows with a share of their bytes lowercase, N or
+    IUPAC."""
+    import torch
+
+    rng = np.random.default_rng(seed + 7)
+    pool = np.frombuffer(b"acgtNnRYKMSWBDHV", np.uint8)
+    out = byts.cpu().numpy().copy()
+    hit = rng.random(out.shape) < share
+    out[hit] = rng.choice(pool, int(hit.sum()))
+    return torch.from_numpy(out).to(byts.device)
+
+
+def first_chunk(path, k, dev):
+    """The first FLAT-base chunk of a file as the native loader cuts it,
+    in ASCII on the card, with its window mask."""
+    import torch
+
+    from khmer_tpu_torch.hashtable import _CODE_ASCII
+    from khmer_tpu_torch.native import NativeChunkReader
+
+    with NativeChunkReader(path, k, FLAT) as reader:
+        codes, mask = next(iter(reader))
+    codes = torch.from_numpy(codes).to(dev)
+    return (_CODE_ASCII.to(dev)[codes.to(torch.int64)],
+            torch.from_numpy(mask).to(dev))
+
+
+def check_murmur_kernels(seed, dev, reads_fa, pairs_fa, rec):
+    """K8 on 16,384 phase-5 rows at three k (and with other bytes) and on
+    a flat chunk, K5's murmur variant on those rows against a Counttable
+    holding their k-mers, K9 on the chunk at two register counts."""
+    import torch
+
+    from khmer_tpu_torch import Counttable, kernels
+    from khmer_tpu_torch.hashtable import _ascii, _pad_rows
+    from khmer_tpu_torch.kernels import plain
+
+    log("phase 3c: K8 on {} phase-5 rows at k = {}, and on a {}-base "
+        "chunk of the phase-4 file; K5 (murmur) and K9 (p = {})".format(
+            BATCH, MURMUR_KS, FLAT, HLL_PS))
+    seqs = fixed_records(pairs_fa, BATCH, 114, 13)
+    k8 = {}
+    for k in MURMUR_KS:
+        byts, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+            seqs, k, encode=_ascii))
+        cases = [(form, byts, lengths, acgt) for form, acgt in
+                 (("full", False), ("acgt", True))]
+        if k == MURMUR_K:
+            cases.append(("mixed", mixed_bytes(byts, seed), lengths, False))
+            # normalize-by-median -p's batch: BATCH bundles of two mates
+            cases.append(("batch",) + tuple(
+                torch.from_numpy(a).to(dev) for a in _pad_rows(
+                    fixed_records(pairs_fa, 2 * BATCH, 114, 13), k,
+                    min_rows=2, encode=_ascii)) + (False,))
+        for form, b, lens, acgt in cases:
+            B, L = b.shape
+            W = L - k + 1
+            got = kernels.murmur_hashes(b, lens, k, acgt)
+            ref = plain.murmur_hashes(b, lens, k, acgt)
+            err = max(max_abs_err(got[0], ref[0]),
+                      max_abs_err(got[1], ref[1]))
+            del got, ref
+            k8["k{}_{}".format(k, form)] = r = dict(
+                err=err, rows=B, width=L,
+                ms=cuda_ms(lambda: kernels.murmur_hashes(b, lens, k, acgt),
+                           10),
+                plain_ms=cuda_ms(lambda: plain.murmur_hashes(
+                    b, lens, k, acgt), 2, inner=1),
+                bound_ms=bound_ms(B * L + B * 4 + B * W * 9))
+            log("K8 k={} {:5s} rows {} x {}: err={} ms={:.4f} "
+                "plain_ms={:.4f} bound_ms={:.4f}".format(
+                    k, form, B, L, err, r["ms"], r["plain_ms"],
+                    r["bound_ms"]))
+            if err:
+                fail("murmur_hashes disagrees with its plain version")
+        del cases, b, lens
+    # K5's murmur variant on the k = 51 rows, the table holding their k-mers
+    byts, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+        seqs, MURMUR_K, encode=_ascii))
+    B, L = byts.shape
+    W = L - MURMUR_K + 1
+    h, valid = kernels.murmur_hashes(byts, lengths, MURMUR_K)
+    ct = Counttable(MURMUR_K, TABLE_SIZE, 4, device=dev)
+    st = ct.storage
+    live = h[valid]
+    st.add_lanes(live, torch.ones_like(live, dtype=torch.int32))
+    distinct = int(torch.unique(live).numel())
+    del h, valid, live
+    geom, cap = st._geom, st.read_cap()
+    err = 0
+    for want in (False, True):
+        got = kernels.row_counts(byts, lengths, MURMUR_K, st.table, *geom,
+                                 cap, want, "murmur")
+        ref = plain.row_counts(byts, lengths, MURMUR_K, st.table, *geom, cap,
+                               want, "murmur")
+        err = max(err, max_abs_err(got[0].to(torch.int32),
+                                   ref[0].to(torch.int32)))
+        if want:
+            err = max(err, max_abs_err(got[1], ref[1]))
+    base = B * L + B * 4 + distinct * st.spec.n_tables * 4
+    k5 = dict(
+        murmur_err=err, murmur_rows=B, murmur_width=L, murmur_k=MURMUR_K,
+        murmur_ms=cuda_ms(lambda: kernels.row_counts(
+            byts, lengths, MURMUR_K, st.table, *geom, cap, False, "murmur"),
+            10),
+        murmur_hashes_ms=cuda_ms(lambda: kernels.row_counts(
+            byts, lengths, MURMUR_K, st.table, *geom, cap, True, "murmur"),
+            10),
+        murmur_plain_ms=cuda_ms(lambda: plain.row_counts(
+            byts, lengths, MURMUR_K, st.table, *geom, cap, False, "murmur"),
+            2, inner=1),
+        murmur_bound_ms=bound_ms(base + B * W * 2),
+        murmur_hashes_bound_ms=bound_ms(base + B * W * 10))
+    log("K5 murmur k={} rows {} x {}: {}".format(MURMUR_K, B, L, json.dumps(
+        k5)))
+    if err:
+        fail("row_counts (murmur) disagrees with its plain version")
+    rec["row_counts"].update(k5)
+    rec["row_counts"]["max_abs_err"] = max(rec["row_counts"]["max_abs_err"],
+                                           err)
+    del ct, st, byts, lengths
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the flat forms on the first chunk of the phase-4 file
+    byts, mask = first_chunk(reads_fa, K, dev)
+    n = byts.numel()
+    one = torch.full((1,), n, dtype=torch.int32, device=dev)
+    got = kernels.murmur_hashes(byts[None, :], one, K, True)
+    ref = plain.murmur_hashes(byts[None, :], one, K, True)
+    err = max(max_abs_err(got[0], ref[0]), max_abs_err(got[1], ref[1]))
+    del got, ref
+    k8["flat"] = dict(
+        err=err, bases=n, k=K,
+        ms=cuda_ms(lambda: kernels.murmur_hashes(byts[None, :], one, K,
+                                                 True), 10),
+        plain_ms=cuda_ms(lambda: plain.murmur_hashes(byts[None, :], one, K,
+                                                     True), 2, inner=1),
+        bound_ms=bound_ms(n + 4 + (n - K + 1) * 9))
+    log("K8 flat {} bases k={}: {}".format(n, K, json.dumps(k8["flat"])))
+    if err:
+        fail("murmur_hashes (flat) disagrees with its plain version")
+    main = k8["k{}_batch".format(MURMUR_K)]
+    B, L = main["rows"], main["width"]
+    record_kernel(rec, "murmur_hashes", max(r["err"] for r in k8.values()),
+                  main["ms"], main["plain_ms"],
+                  B * L + B * 4 + B * (L - MURMUR_K + 1) * 9, k=MURMUR_K,
+                  rows=B, width=L, shapes=k8)
+    k9 = {}
+    for p in HLL_PS:
+        m = 1 << p
+        regs = torch.zeros(m, dtype=torch.uint8, device=dev)
+        ref = regs.clone()
+        kernels.hll_update(byts, mask, K, p, m, regs)
+        plain.hll_update(byts, mask, K, p, m, ref)
+        k9[p] = dict(err=max_abs_err(regs, ref), bases=n, k=K, registers=m,
+                     filled=int((regs != 0).sum()),
+                     ms=cuda_ms(lambda: kernels.hll_update(
+                         byts, mask, K, p, m, regs), 10),
+                     plain_ms=cuda_ms(lambda: plain.hll_update(
+                         byts, mask, K, p, m, ref), 2, inner=1),
+                     bytes=2 * n + m)
+        log("K9 p={}: {}".format(p, json.dumps(k9[p])))
+    main = k9[HLL_PS[0]]
+    record_kernel(rec, "hll_update", max(r["err"] for r in k9.values()),
+                  main["ms"], main["plain_ms"], main["bytes"], p=HLL_PS[0],
+                  bases=n, k=K, p16_ms=k9[16]["ms"],
+                  p16_plain_ms=k9[16]["plain_ms"],
+                  p16_bound_ms=bound_ms(k9[16]["bytes"]))
+    del byts, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the murmur path at full size
+# ---------------------------------------------------------------------------
+
+
+def distinct_union(uniq4, pairs_fa, dev, k=K):
+    """Distinct canonical k-mers of the phase-4 file (uniq4) together with
+    those of the phase-5 file, exactly: exact_kmers' arithmetic in plain
+    torch ops on `dev`, then one torch.unique (all fit int64 at k <= 31)."""
+    import torch
+
+    raw = np.fromfile(pairs_fa, np.uint8).reshape(-1, 114)[:, 13:113]
+    lut = torch.zeros(256, dtype=torch.int64, device=dev)
+    for ch, code in ((b"A", 0), (b"T", 1), (b"C", 2), (b"G", 3)):
+        lut[ch[0]] = code
+    codes = lut[torch.from_numpy(raw.copy()).to(dev).to(torch.int64)]
+    w = codes.shape[1] - k + 1
+    f = torch.zeros((codes.shape[0], w), dtype=torch.int64, device=dev)
+    r = torch.zeros_like(f)
+    for j in range(k):
+        c = codes[:, j:j + w]
+        f <<= 2
+        f |= c
+        r |= (c ^ 1) << (2 * j)
+    keys = torch.cat([torch.from_numpy(uniq4.view(np.int64)).to(dev),
+                      torch.minimum(f, r).reshape(-1)])
+    del codes, f, r
+    return int(torch.unique(keys).numel())
+
+
+def murmur_scripts(workdir, reads_fa, pairs_fa, dev, profile, card):
+    """The phase-6 runs on `dev`, in `workdir`: their walls (and device
+    busy seconds when `profile`), the estimates they print, the sha256 of
+    every HLL counter's registers when estimated, of the reports and
+    output files, reads and bases kept, and the n_unique values read."""
+    from khmer_tpu_torch import HLLCounter
+    from khmer_tpu_torch.hashtable import Hashtable
+    from khmer_tpu_torch.scripts import (filter_abund_single,
+                                         normalize_by_median, unique_kmers)
+
+    os.makedirs(workdir)
+    table = ["-H", "murmur", "-k", str(MURMUR_K), "-N", "4", "-x",
+             repr(TABLE_SIZE)]
+    runs = [("unique-kmers -k {}".format(k), unique_kmers.main,
+             ["-q", "-k", str(k), "-e", "0.01", "-R", "uk{}.txt".format(k),
+              reads_fa, pairs_fa], ["uk{}.txt".format(k)])
+            for k in (K, MURMUR_K)]
+    runs += [
+        ("filter-abund-single -H murmur", filter_abund_single.main,
+         ["-q"] + table + ["-C", "2", "-o", "single51.fa", pairs_fa],
+         ["single51.fa"]),
+        ("normalize-by-median -H murmur", normalize_by_median.main,
+         ["-q"] + table + ["-p", "-C", "20", "-o", "nbm51.fa", pairs_fa],
+         ["nbm51.fa"])]
+    n_unique, registers = [], []
+    counted = Hashtable.n_unique_kmers
+    estimate = HLLCounter.estimate_cardinality
+
+    def n_unique_kmers(self):
+        n_unique.append(counted(self))
+        return n_unique[-1]
+
+    def estimate_cardinality(self):
+        regs = self._counters[:self._m].cpu().numpy()
+        registers.append(hashlib.sha256(regs.tobytes()).hexdigest())
+        return estimate(self)
+
+    out = {"walls": {}, "busy": {}}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with mock.patch.object(Hashtable, "n_unique_kmers", n_unique_kmers), \
+                mock.patch.object(HLLCounter, "estimate_cardinality",
+                                  estimate_cardinality):
+            for name, fn, argv, outputs in runs:
+                err = io.StringIO()
+                run = lambda: fn(argv, device=dev)  # noqa: E731
+                sync(dev)
+                try:
+                    with contextlib.redirect_stderr(err):
+                        if profile:
+                            wall, busy = device_share(name, run, card)
+                            out["busy"][name] = busy
+                        else:
+                            t0 = time.perf_counter()
+                            run()
+                            sync(dev)
+                            wall = time.perf_counter() - t0
+                except BaseException:
+                    sys.stderr.write(err.getvalue())
+                    raise
+                out["walls"][name] = wall
+                gc.collect()
+                if name.startswith("unique-kmers"):
+                    out[name + " estimates"] = [
+                        ln for ln in err.getvalue().splitlines()
+                        if "unique" in ln and "-mers" in ln]
+                for o in outputs:
+                    with open(o, "rb") as f:
+                        out[o] = hashlib.sha256(f.read()).hexdigest()
+                    if o.endswith(".fa"):
+                        out[o + " reads,bases"] = count_records(o)
+    finally:
+        os.chdir(cwd)
+    out["n_unique"] = n_unique
+    out["registers"] = registers
+    return out
+
+
+def estimate_of(lines, tail):
+    """The estimate on the printed line that ends `tail: N`."""
+    for ln in lines:
+        head, _, value = ln.rpartition(": ")
+        if head.endswith(tail):
+            return int(value)
+    fail("no estimate line ending in {!r}".format(tail))
+
+
+def run_murmur(card, dev, tmp, reads_fa, pairs_fa, uniq4):
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = murmur_scripts(os.path.join(tmp, "m_kernels"), reads_fa, pairs_fa,
+                         dev, True, card)
+    launches = dict(kernels.LAUNCHES)
+    murmur_rows = kernels.ROW_COUNTS_BY_HASH["murmur"]
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 6 launches: {}; row_counts by hash: {}".format(
+        json.dumps(launches), json.dumps(kernels.ROW_COUNTS_BY_HASH)))
+    log("phase 6 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in MURMUR_PATH if launches[k] == 0]
+    if missing or not murmur_rows:
+        fail("kernels not launched by the murmur path: {}{}".format(
+            missing, "" if murmur_rows else " and row_counts (murmur)"))
+    for name, wall in got["walls"].items():
+        busy = got["busy"].get(name)
+        mb = (64 + 128 if name.startswith("unique") else 128)
+        log("{}: {:.3f} s (profiled), {:.2f} Mbases/s, device busy {} "
+            "[{}]".format(name, wall, mb / wall,
+                          "not measured" if busy is None else
+                          "{:.3f} s = {:.1f}%".format(busy,
+                                                      100 * busy / wall),
+                          card))
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = murmur_scripts(os.path.join(tmp, "m_plain"), reads_fa,
+                             pairs_fa, dev, False, card)
+    log("phase 6 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    keys = [k for k in got if k not in ("walls", "busy")]
+    for k in keys:
+        if got[k] != ref[k]:
+            fail("murmur path differs from its plain run in {}: {} vs {}"
+                 .format(k, got[k], ref[k]))
+    log("kernels == plain on the card: {}".format(json.dumps(
+        {k: got[k] for k in keys})))
+    lines = got["unique-kmers -k {} estimates".format(K)]
+    t0 = time.perf_counter()
+    exact = {"phase-4 file": int(uniq4.size),
+             "total": distinct_union(uniq4, pairs_fa, dev)}
+    est = {"phase-4 file": estimate_of(lines, reads_fa),
+           "total": estimate_of(lines, "unique {}-mers".format(K))}
+    for name in exact:
+        rel = est[name] / exact[name] - 1
+        log("k = {} estimate, {}: {} against exactly {} distinct ({:+.3%}; "
+            "exact counts {:.1f} s)".format(
+                K, name, est[name], exact[name], rel,
+                time.perf_counter() - t0))
+        if abs(rel) > 0.03:
+            fail("the {} estimate is not within 3% of the exact count"
+                 .format(name))
+    kept = got["nbm51.fa reads,bases"][0]
+    if not 0 < kept < SLICE2_READS:
+        fail("normalize-by-median -H murmur kept {} of {} reads".format(
+            kept, SLICE2_READS))
+    launches["row_counts_murmur"] = murmur_rows
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1229,15 +1630,20 @@ def main():
 
     rec = check_kernels(args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="khmer_smoke_") as tmp:
-        launches = main_path(args.seed, card, dev, tmp)
+        launches, uniq4 = main_path(args.seed, card, dev, tmp)
         ct = os.path.join(tmp, "kernels", "reads.ct")
+        reads_fa = os.path.join(tmp, "reads.fa")
         pairs_fa, head_fa = make_slice2_files(args.seed, tmp)
-        check_slice2_kernels(args.seed, dev, ct,
-                             os.path.join(tmp, "reads.fa"), pairs_fa, rec)
+        check_slice2_kernels(args.seed, dev, ct, reads_fa, pairs_fa, rec)
+        check_murmur_kernels(args.seed, dev, reads_fa, pairs_fa, rec)
         slice2 = run_slice2(card, dev, tmp, ct, pairs_fa, head_fa)
+        murmur = run_murmur(card, dev, tmp, reads_fa, pairs_fa, uniq4)
     # each kernel's launches by the path that runs it: slice 1's by the
-    # main path (phase 4), slice 2's by the phase-5 path
+    # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
+    # murmur path (phase 6), which also gives K5's murmur launches
     launches.update({k: slice2[k] for k in SOURCES if k not in MAIN_PATH})
+    launches.update({k: murmur[k] for k in ("murmur_hashes", "hll_update")})
+    rec["row_counts"]["murmur_launches"] = murmur["row_counts_murmur"]
 
     from khmer_tpu_torch.kernels import KERNELS_PER_CALL
 

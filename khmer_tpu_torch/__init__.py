@@ -11,7 +11,10 @@ normalize-by-median, trim-low-abund, filter-abund(-single) and
 count-median (slice 2), each as ``khmer_tpu_torch.scripts.<name>.main``
 (``main(argv, device=None)``), and the read-level queries they use
 (``count_rows``, ``get_median_count(_batch)``, ``median_at_least(_batch)``,
-``trim_on_abundance``, ``diginorm_batch``, ``trim_pass1_batch``, ...).
+``trim_on_abundance``, ``diginorm_batch``, ``trim_pass1_batch``, ...);
+the murmur hash family (slice 3a): Counttable and Nodetable (any k up to
+255, also behind ``-H murmur`` in the streaming filters), HLLCounter and
+the script unique-kmers.
 """
 
 from collections import namedtuple
@@ -20,12 +23,19 @@ import sys
 
 from khmer_tpu_torch._version import __version__
 from khmer_tpu_torch.graph import Countgraph, Nodegraph
+from khmer_tpu_torch.hashtable import Counttable, Nodetable
+from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxReader, Read
 from khmer_tpu_torch.io.oxli_format import FILETYPES
+from khmer_tpu_torch.ops.hashing import (
+    hash_murmur3_scalar as hash_murmur3,
+    hash_no_rc_murmur3_scalar as hash_no_rc_murmur3,
+)
 
-__all__ = ["Countgraph", "FastxReader", "Nodegraph", "Read", "ReadParser",
-           "__version__", "calc_expected_collisions",
-           "extract_countgraph_info"]
+__all__ = ["Countgraph", "Counttable", "FastxReader", "HLLCounter",
+           "Nodegraph", "Nodetable", "Read", "ReadParser", "__version__",
+           "calc_expected_collisions", "extract_countgraph_info",
+           "hash_murmur3", "hash_no_rc_murmur3"]
 
 # khmer's name for its read parser (khmer_tpu/__init__.py:60)
 ReadParser = FastxReader
@@ -33,6 +43,7 @@ ReadParser = FastxReader
 _buckets_per_byte = {
     # parity with reference khmer/__init__.py:86-93
     'countgraph': 1,
+    'counttable': 1,
     'smallcountgraph': 2,
     'nodegraph': 8,
 }

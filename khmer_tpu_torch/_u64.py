@@ -2,9 +2,10 @@
 
 PyTorch's CPU UInt64 tensors have no ``>>``, ``%``, ``<`` or
 ``minimum``, so hashes travel as int64 tensors holding the same 64
-bits.  Two's-complement ``<<``, ``&``, ``|``, ``^`` and ``==`` already
-agree with uint64; the helpers below supply the order and the modulo,
-which do not (the plain versions need no right shift).
+bits.  Two's-complement ``<<``, ``&``, ``|``, ``^``, ``==`` and the
+wrapping ``+`` and ``*`` already agree with uint64; the helpers below
+supply the order, the modulo, the logical right shift and the count of
+leading zeros, which do not.
 CUDA code reads the same bytes as native ``unsigned long long``.
 """
 
@@ -54,3 +55,29 @@ def umod(x, p):
 def u32(x):
     """uint32 bit patterns held in an int32 tensor -> int64 values."""
     return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def i64(c):
+    """The int64 bit pattern of a uint64 constant (a Python int)."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def lsr(x, r):
+    """Logical x >> r for 0 < r < 64."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def rotl(x, r):
+    """x rotated left by r bits, 0 < r < 64."""
+    return (x << r) | lsr(x, 64 - r)
+
+
+def clz(x):
+    """Leading zero bits of every uint64 pattern (64 for 0), by a binary
+    search of shifts (a float log2 is inexact above 2**53)."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        zero = (x >> (64 - s)) == 0  # the top s bits are clear
+        n += zero * s
+        x = torch.where(zero, x << s, x)
+    return n + (x == 0)

@@ -2,13 +2,15 @@
 
 A khmer_tpu table (``np.asarray(cg.storage.table)``, a uint32 array of
 sum(tablesizes) + 1 bins) together with its counters becomes a port
-table that answers every query the same way.
+table that answers every query the same way; khmer_tpu's HLL registers
+(``np.asarray(h._counters)[:-1]``) become a port HLLCounter.
 """
 
 import numpy as np
 import torch
 
 from khmer_tpu_torch.graph import Countgraph
+from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.storage import BitStorage, ByteStorage
 
 
@@ -34,9 +36,31 @@ def countgraph_from_numpy(ksize, tablesizes, bins_u32, n_unique=0,
                           use_bigcount=False, device=None):
     """A Countgraph over the given uint32 bins; use_bigcount as
     khmer_tpu's graph has it (``cg.get_use_bigcount()``)."""
-    cg = Countgraph.__new__(Countgraph)
-    cg._ksize = int(ksize)
-    cg.storage = storage_from_numpy("byte", tablesizes, bins_u32, n_unique,
-                                    bigcount_candidates, bigcounts, device)
-    cg.set_use_bigcount(use_bigcount)
-    return cg
+    return table_from_numpy(Countgraph, ksize, tablesizes, bins_u32,
+                            n_unique, bigcount_candidates, bigcounts,
+                            use_bigcount, device)
+
+
+def table_from_numpy(cls, ksize, tablesizes, bins_u32, n_unique=0,
+                     bigcount_candidates=(), bigcounts=None,
+                     use_bigcount=False, device=None):
+    """A table of class `cls` (Countgraph, Nodegraph, Counttable or
+    Nodetable) over the given uint32 bins; use_bigcount as khmer_tpu's
+    table has it (counting tables only)."""
+    t = cls.__new__(cls)
+    t._ksize = int(ksize)
+    t.storage = storage_from_numpy(cls.storage_class.kind, tablesizes,
+                                   bins_u32, n_unique, bigcount_candidates,
+                                   bigcounts, device)
+    if t.storage.kind == "byte":
+        t.set_use_bigcount(use_bigcount)
+    return t
+
+
+def hll_from_numpy(counters_u8, ksize, device=None):
+    """An HLLCounter holding the given uint8 registers (their count is the
+    register count, as khmer_tpu's explicit-count constructor takes it)."""
+    regs = np.asarray(counters_u8, np.uint8)
+    h = HLLCounter(int(regs.size), ksize, device=device)
+    h.counters = regs
+    return h

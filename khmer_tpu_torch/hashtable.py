@@ -14,11 +14,17 @@ windows, so _DeferSchedule mirrors it there.
 
 Read-level queries pad rows as khmer_tpu does and read every window's
 count with kernel K5, which hashes and reads in one pass.  The
-streaming filters take a batch of read bundles per call: K1 hashes it,
+streaming filters take a batch of read bundles per call: K1 (K8 for
+murmur tables) hashes it,
 the batch's distinct k-mers get ids (a sort) and K3 reads their counts
 before the batch, kernel K6 (normalize-by-median) or K7 (trim-low-abund)
 takes the sequential per-bundle decision in one block, and K2 adds the
 taken bundles' tally to the sketch once.
+
+Tables over the murmur hash (Counttable, Nodetable; any k up to 255)
+take the same paths with kernel K8 in place of K1: flat chunks of the
+cleaned stream are turned back into ASCII and hashed with the
+bulk-consume complement, and rows carry the ASCII bytes of the reads.
 """
 
 import math
@@ -31,9 +37,13 @@ from khmer_tpu_torch._config import KSIZE_MAX, MAX_BIGCOUNT, MAX_KCOUNT
 from khmer_tpu_torch.io import oxli_format
 from khmer_tpu_torch.ops import encode as enc
 from khmer_tpu_torch.ops.hashing import (chunk_hashes, forward_hash,
-                                         kmer_hashes_2bit, row_hashes_counts)
+                                         hash_murmur3_scalar,
+                                         kmer_hashes_2bit,
+                                         murmur_window_hashes, reverse_hash,
+                                         row_hashes_counts)
 from khmer_tpu_torch.ops.sketch_ops import sketch_update
 from khmer_tpu_torch.primes import get_n_primes_near_x
+from khmer_tpu_torch.storage import BitStorage, ByteStorage
 
 # bases per device chunk; any size gives the same table, counts and
 # histogram
@@ -43,6 +53,8 @@ CHUNK = 1 << 23
 OVERLAY_CHUNK = 1 << 20
 # the unsigned sort key of 2**64 - 1, which marks dead lanes
 _DEAD = (1 << 63) - 1
+# 2-bit code -> ASCII base (A=0 T=1 C=2 G=3), khmer_tpu's _decode_codes
+_CODE_ASCII = torch.tensor([65, 84, 67, 71], dtype=torch.uint8)
 # khmer_tpu's deferred counter in its own units: a chunk is cut into rows
 # of ROW_PAYLOAD bases (khmer_tpu/hashtable.py:54), and no buffer or
 # bucket is smaller than MIN_BUCKET lanes (ops/deferred.py:113)
@@ -58,11 +70,15 @@ def _pow2(n):
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def _lane_count(k, bases):
-    """Lanes of khmer_tpu's phase-major hash of a chunk of `bases`
-    (hashtable.py:_chunk_lane_count): 16 phases x rows x the words of a
-    row of ROW_PAYLOAD + k - 1 codes."""
-    return 16 * (bases // ROW_PAYLOAD) * -(-(ROW_PAYLOAD + k - 1) // 16)
+def _lane_count(k, bases, hash_kind="2bit"):
+    """Lanes of khmer_tpu's hash of a chunk of `bases`
+    (hashtable.py:_chunk_lane_count): for the 2-bit hash, phase-major, 16
+    phases x rows x the words of a row of ROW_PAYLOAD + k - 1 codes; for
+    murmur, ROW_PAYLOAD lanes a row."""
+    rows = bases // ROW_PAYLOAD
+    if hash_kind == "murmur":
+        return rows * ROW_PAYLOAD
+    return 16 * rows * -(-(ROW_PAYLOAD + k - 1) // 16)
 
 
 def _first_of_runs(keys, pos=None):
@@ -82,16 +98,23 @@ def _row_width(max_len, k):
     return max(1 << max(max_len - 1, 1).bit_length(), 64) + k
 
 
-def _pad_rows(seqs, k, min_rows=1):
-    """Raw sequences as khmer_tpu pads them: uint8 2-bit codes [B, L] and
-    int32 lengths [B], with B the least power of two >= len(seqs) (and
-    >= min_rows) and L = _row_width; rows past the sequences are empty."""
+def _ascii(seq):
+    """A sequence's bytes as khmer_tpu's murmur tables hash them
+    (hashtable.py:_encode)."""
+    return np.frombuffer(seq.encode("ascii"), np.uint8).copy()
+
+
+def _pad_rows(seqs, k, min_rows=1, encode=enc.encode_sequence):
+    """Raw sequences as khmer_tpu pads them: uint8 rows [B, L] (2-bit
+    codes, or what `encode` makes of a sequence) and int32 lengths [B],
+    with B the least power of two >= len(seqs) (and >= min_rows) and
+    L = _row_width; rows past the sequences are empty."""
     n = len(seqs)
     lens = np.fromiter(map(len, seqs), np.int64, n)
     L = _row_width(int(lens.max()) if n else 1, k)
     B = max(_pow2(n), min_rows)
     data = np.zeros((B, L), np.uint8)
-    codes = enc.encode_sequence("".join(seqs))
+    codes = encode("".join(seqs))
     starts = np.repeat(np.arange(n, dtype=np.int64) * L - np.cumsum(lens)
                        + lens, lens)
     data.reshape(-1)[starts + np.arange(codes.size)] = codes
@@ -270,16 +293,18 @@ class _StreamStats:
 
 
 class Hashtable:
-    """Base k-mer table over the exact 2-bit hash (k <= 32)."""
+    """Base k-mer table over the exact 2-bit hash (k <= 32) or, for
+    hash_kind "murmur", the murmur hash (k <= 255)."""
 
     storage_class = None
+    hash_kind = "2bit"
 
     def __init__(self, ksize, starting_size=None, n_tables=None,
                  primes=None, device=None):
         ksize = int(ksize)
-        if ksize > KSIZE_MAX:
+        if self.hash_kind == "2bit" and ksize > KSIZE_MAX:
             raise ValueError("k-mer size must be <= 32 for this table type")
-        if ksize < 1:
+        if ksize < 1 or ksize > kernels.MURMUR_MAX_K:
             raise ValueError("k-mer size must be in [1, 255]")
         if primes is None:
             primes = get_n_primes_near_x(n_tables, starting_size)
@@ -327,14 +352,48 @@ class Hashtable:
             raise ValueError(
                 "Expected k-mer length {} but got {}.".format(
                     self._ksize, len(kmer)))
+        if self.hash_kind == "murmur":
+            return hash_murmur3_scalar(kmer)
         return forward_hash(kmer, self._ksize)
+
+    def reverse_hash(self, khash):
+        """The k-mer of a 2-bit hash; the murmur hash has no inverse
+        (reference hashtable.hh:468-472)."""
+        if self.hash_kind != "2bit":
+            raise ValueError("not implemented")
+        return reverse_hash(khash, self._ksize)
+
+    def _encode(self, sequence):
+        """A raw sequence as this table's hash reads it: 2-bit codes, or
+        ASCII bytes for murmur (khmer_tpu/hashtable.py:999-1003)."""
+        if self.hash_kind == "murmur":
+            return _ascii(sequence)
+        return enc.encode_sequence(sequence)
 
     def _lanes(self, sequence):
         """(hashes, weights) device lanes of every window of a raw
-        sequence; the last k-1 lanes carry weight 0."""
-        codes = torch.from_numpy(enc.encode_sequence(sequence)).to(
-            self.device)
+        sequence; for the 2-bit hash the last k-1 lanes carry weight 0,
+        for murmur there is one lane a window (K8, the full complement
+        table, as khmer_tpu's _hash_array)."""
+        codes = torch.from_numpy(self._encode(sequence)).to(self.device)
+        if self.hash_kind == "murmur":
+            h = murmur_window_hashes(codes, self._ksize)
+            return h, torch.ones_like(h, dtype=torch.int32)
         return chunk_hashes(codes, torch.ones_like(codes), self._ksize)
+
+    def _chunk_lanes(self, codes, mask):
+        """(hashes, weights) of the windows of a flat chunk of cleaned
+        2-bit codes with the loader's window mask, lane i the window at
+        position i: K1, or for murmur K8 over the chunk's ASCII bytes
+        with the bulk-consume complement (khmer_tpu/hashtable.py:
+        _chunk_hashes_weights), one lane for each window that ends inside
+        the chunk."""
+        k = self._ksize
+        if self.hash_kind != "murmur":
+            return chunk_hashes(codes, mask, k)
+        ascii = _CODE_ASCII.to(codes.device)[codes.to(torch.int64)]
+        h = murmur_window_hashes(ascii, k, assume_acgt=True)
+        return h, mask[:h.numel()].to(torch.int32)
 
     def _hash_array(self, sequence):
         """All k-mer hashes of a sequence as a numpy uint64 array."""
@@ -408,7 +467,7 @@ class Hashtable:
         Hashtable::consume_seqfile, src/oxli/hashtable.cc:133-158."""
         stats = _StreamStats()
         for codes, mask in self._chunks(parser_or_filename, chunk, stats):
-            self.storage.add_lanes(*chunk_hashes(codes, mask, self._ksize))
+            self.storage.add_lanes(*self._chunk_lanes(codes, mask))
         return stats.n_reads, stats.n_consumed
 
     # -- per-sequence statistics ------------------------------------------
@@ -432,11 +491,12 @@ class Hashtable:
         counts [B, W], int64 hashes [B, W] or None, bool valid [B, W]) on
         the device, read without the loaded bigcount overlay, as
         khmer_tpu's row functions read them (_read_spec)."""
-        codes, lengths = _pad_rows(sequences, self._ksize)
+        codes, lengths = _pad_rows(sequences, self._ksize,
+                                   encode=self._encode)
         st = self.storage
         return row_hashes_counts(self._upload(codes), self._upload(lengths),
                                  self._ksize, st._geom, st.table,
-                                 st.read_cap(), want_hashes)
+                                 st.read_cap(), want_hashes, self.hash_kind)
 
     def _hash_count_rows(self, sequences):
         """Per-sequence (uint64 hashes, uint16 counts) numpy pairs for a
@@ -576,11 +636,14 @@ class Hashtable:
             rows += [s0, s1 if s1 is not None else ""]
             real[2 * i] = 1
             real[2 * i + 1] = s1 is not None
-        codes, lengths = _pad_rows(rows, self._ksize, min_rows=2)
+        codes, lengths = _pad_rows(rows, self._ksize, min_rows=2,
+                                   encode=self._encode)
         realarr = np.zeros(codes.shape[0], np.uint8)
         realarr[:real.size] = real
-        h, valid = kmer_hashes_2bit(self._upload(codes),
-                                    self._upload(lengths), self._ksize)
+        hash_rows = kernels.murmur_hashes if self.hash_kind == "murmur" \
+            else kmer_hashes_2bit
+        h, valid = hash_rows(self._upload(codes), self._upload(lengths),
+                             self._ksize)
         ids, keys = _batch_ids(h, valid)
         del h
         valid = valid.to(torch.uint8)
@@ -701,7 +764,8 @@ class Hashtable:
             raise ValueError("chunk must be a positive multiple of "
                              "{}".format(ROW_PAYLOAD))
         k = self._ksize
-        sched = _DeferSchedule(_lane_count(k, chunk), max_cap)
+        sched = _DeferSchedule(_lane_count(k, chunk, self.hash_kind),
+                               max_cap)
         cycle, segment = _Ledger(), _Ledger()
 
         def close(bucket):
@@ -719,7 +783,7 @@ class Hashtable:
             n = codes.numel()
             bases = chunk if native or n == chunk else \
                 min(max(_pow2(n), ROW_PAYLOAD), chunk)
-            bucket = sched.append(_lane_count(k, bases))
+            bucket = sched.append(_lane_count(k, bases, self.hash_kind))
             if bucket:
                 close(bucket)
             cycle.add(*self._chunk_firsts(codes, mask, base))
@@ -732,7 +796,7 @@ class Hashtable:
     def _chunk_firsts(self, codes, mask, base):
         """The distinct live hashes of one chunk as unsigned sort keys,
         ascending, each with its first stream position (base + lane)."""
-        h, w = chunk_hashes(codes, mask, self._ksize)
+        h, w = self._chunk_lanes(codes, mask)
         # dead lanes sort last under the largest key, which no canonical
         # hash takes (min(fwd, rc) < 2**64 - 1)
         k, lane = _first_of_runs(torch.where(w != 0, _u64.sort_key(h), _DEAD))
@@ -775,7 +839,7 @@ class Hashtable:
         fix = np.zeros(MAX_BIGCOUNT + 1, np.int64)
         for codes, mask in self._chunks(parser_or_filename, OVERLAY_CHUNK,
                                         _StreamStats()):
-            h, w = chunk_hashes(codes, mask, self._ksize)
+            h, w = self._chunk_lanes(codes, mask)
             keys = torch.sort(h[w != 0]).values
             new = kernels.abund_hist(keys, st.table, *st._geom, ts.table,
                                      *ts._geom, cap, hist)
@@ -810,3 +874,18 @@ def _median_avg_std(counts):
     avg = float(counts.mean())
     stddev = float(math.sqrt(((counts - avg) ** 2).mean()))
     return int(np.sort(counts)[counts.size // 2]), avg, stddev
+
+
+class Counttable(Hashtable):
+    """Count-Min sketch over the murmur hash (graphs.pyx:454; k <= 255):
+    khmer_tpu/hashtable.py:1853."""
+
+    storage_class = ByteStorage
+    hash_kind = "murmur"
+
+
+class Nodetable(Hashtable):
+    """Bloom filter over the murmur hash: khmer_tpu/hashtable.py:2091."""
+
+    storage_class = BitStorage
+    hash_kind = "murmur"

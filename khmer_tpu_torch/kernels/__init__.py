@@ -7,8 +7,9 @@ for sketch_update, one for the others); for a CPU tensor it calls the
 plain PyTorch version in plain.py.  A failed build or launch raises;
 nothing falls back.
 
-Tensor conventions: hashes are int64 bit patterns of uint64; sketch
-tables are int32 bit patterns of uint32 bins (sum(sizes) + 1 bins);
+Tensor conventions: hashes are int64 bit patterns of uint64 (murmur
+hashes use all 64 bits); sketch tables are int32 bit patterns of uint32
+bins (sum(sizes) + 1 bins);
 `sizes`, `offsets` and `recips` (the Barrett reciprocals of the sizes,
 ops/sketch_ops.py:barrett_recips, as int64 bit patterns) are int64 [T]
 tensors on the table's device.
@@ -22,8 +23,11 @@ from khmer_tpu_torch.kernels import _build, plain
 
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
-           "trim_chain")
+           "trim_chain", "murmur_hashes", "hll_update")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# row_counts' launches by hash kind (its 2-bit and murmur variants)
+ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0}
+MURMUR_MAX_K = 255  # csrc/murmur.cuh kMaxK
 # sketch_update is the partitioned update of csrc/sketch.cu: count,
 # bucket scan, bucket, partition count, two scan launches, place, apply,
 # hot and finish
@@ -46,6 +50,8 @@ _META_WORDS = 8               # csrc/sketch.cu kMetaWords
 def reset_launches():
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for kind in ROW_COUNTS_BY_HASH:
+        ROW_COUNTS_BY_HASH[kind] = 0
 
 
 def _check(name, t, dtype, device):
@@ -83,9 +89,10 @@ def _partition_work(n_records, nbins, dev):
             torch.zeros(_META_WORDS, dtype=torch.int32, device=dev))
 
 
-def _launch(name, *args):
+def _launch(name, *args, entry=None):
     stream = torch.cuda.current_stream().cuda_stream
-    err = _build.function("khmer_" + name)(*args, ctypes.c_void_p(stream))
+    err = _build.function(entry or "khmer_" + name)(*args,
+                                                    ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("{} launch failed with CUDA error {}".format(
             name, err))
@@ -229,23 +236,29 @@ def bin_scatter_add(table, idx, vals):
 
 
 def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
-               want_hashes=False):
+               want_hashes=False, hash_kind="2bit"):
     """K5: canonical hash and count of every window of a padded batch of
-    rows, codes uint8 [B, L] with lengths int32 [B] (each <= L).  Returns
-    (uint16 counts [B, W], capped at cap, 0 for a window that runs past
-    its row's length; int64 hashes [B, W] when want_hashes, else None),
-    W = L - k + 1; see csrc/rows.cu."""
+    rows, uint8 [B, L] with lengths int32 [B] (each <= L): 2-bit codes and
+    1 <= k <= 32 for hash_kind "2bit", ASCII bytes and 1 <= k <= 255 for
+    "murmur" (the hash of murmur_hashes with khmer's full complement
+    table).  Returns (uint16 counts [B, W], capped at cap, 0 for a window
+    that runs past its row's length; int64 hashes [B, W] when
+    want_hashes, else None), W = L - k + 1; see csrc/rows.cu."""
     dev = table.device
     _check_geometry(table, sizes, offsets, recips)
     _check("codes", codes, torch.uint8, dev)
     _check("lengths", lengths, torch.int32, dev)
+    kmax = {"2bit": 32, "murmur": MURMUR_MAX_K}.get(hash_kind)
+    if kmax is None:
+        raise ValueError("row_counts: unknown hash kind {!r}".format(
+            hash_kind))
     if codes.dim() != 2 or lengths.shape != codes.shape[:1] or \
-            not 1 <= k <= 32 or codes.shape[1] < k:
+            not 1 <= k <= kmax or codes.shape[1] < k:
         raise ValueError("row_counts: need codes [B, L >= k], lengths [B] "
-                         "and 1 <= k <= 32")
+                         "and 1 <= k <= {}".format(kmax))
     if dev.type != "cuda":
         return plain.row_counts(codes, lengths, k, table, sizes, offsets,
-                                recips, cap, want_hashes)
+                                recips, cap, want_hashes, hash_kind)
     B, L = codes.shape
     W = L - k + 1
     counts = torch.empty((B, W), dtype=torch.uint16, device=dev)
@@ -256,8 +269,66 @@ def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
                 table.data_ptr(), sizes.numel(), sizes.data_ptr(),
                 offsets.data_ptr(), recips.data_ptr(), int(cap),
                 counts.data_ptr(),
-                hashes.data_ptr() if want_hashes else None)
+                hashes.data_ptr() if want_hashes else None,
+                entry="khmer_row_counts" + ("_murmur" if hash_kind ==
+                                            "murmur" else ""))
+        ROW_COUNTS_BY_HASH[hash_kind] += 1
     return counts, hashes
+
+
+def murmur_hashes(byts, lengths, k, assume_acgt=False):
+    """K8: canonical murmur hash (MurmurHash3_x64_128's h1 of the window
+    xor that of its reverse complement, or h1 alone where the two 128-bit
+    hashes are equal) of every window of a padded batch of ASCII rows,
+    byts uint8 [B, L] with lengths int32 [B], 1 <= k <= 255.  With
+    assume_acgt the complement maps A, C, G, T and everything else to
+    ' ' (bulk consume); otherwise khmer's full IUPAC table.  Returns
+    (int64 hashes [B, W], bool valid [B, W]: the window ends inside its
+    row's length), W = L - k + 1; a window that is not valid still hashes
+    the bytes it covers.  See csrc/murmur.cu."""
+    dev = byts.device
+    _check("byts", byts, torch.uint8, dev)
+    _check("lengths", lengths, torch.int32, dev)
+    if byts.dim() != 2 or lengths.shape != byts.shape[:1] or \
+            not 1 <= k <= MURMUR_MAX_K or byts.shape[1] < k:
+        raise ValueError("murmur_hashes: need byts [B, L >= k], lengths [B] "
+                         "and 1 <= k <= {}".format(MURMUR_MAX_K))
+    if dev.type != "cuda":
+        return plain.murmur_hashes(byts, lengths, k, assume_acgt)
+    B, L = byts.shape
+    W = L - k + 1
+    hashes = torch.empty((B, W), dtype=torch.int64, device=dev)
+    if B:
+        _launch("murmur_hashes", byts.data_ptr(), B, L, k, int(assume_acgt),
+                hashes.data_ptr())
+    return hashes, plain.window_valid(lengths, W, k)
+
+
+def hll_update(byts, weights, k, p, m, registers):
+    """K9: HyperLogLog update of a flat chunk of ASCII bytes (uint8 [n])
+    with window weights (uint8 [n]): every window start i <= n - k whose
+    weight is not 0 raises registers[h & (m - 1)] to rho = clz(h >> p) -
+    p + 1, h its assume_acgt murmur hash.  registers is uint8 [>= m],
+    a multiple of 4 bytes, updated in place; 4 <= p <= 16 and
+    2**p <= m < 2**(p + 1) (m = 2**p but for an explicit register
+    count).  See csrc/hll.cu."""
+    dev = registers.device
+    _check("byts", byts, torch.uint8, dev)
+    _check("weights", weights, torch.uint8, dev)
+    _check("registers", registers, torch.uint8, dev)
+    if byts.dim() != 1 or weights.shape != byts.shape or \
+            not 4 <= p <= 16 or not 1 << p <= m < 2 << p or \
+            registers.numel() < m or registers.numel() % 4 or \
+            not 1 <= k <= MURMUR_MAX_K:
+        raise ValueError("hll_update: need byts and weights [n], 1 <= k <= "
+                         "{}, 4 <= p <= 16, 2**p <= m < 2**(p + 1) and m "
+                         "registers, padded to 4 bytes".format(MURMUR_MAX_K))
+    if dev.type != "cuda":
+        return plain.hll_update(byts, weights, k, p, m, registers)
+    n = byts.numel()
+    if n >= k:
+        _launch("hll_update", byts.data_ptr(), weights.data_ptr(), n, k, p,
+                m, registers.data_ptr())
 
 
 def _check_chain(ids, valid, real, pre):

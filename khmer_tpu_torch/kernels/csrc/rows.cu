@@ -22,12 +22,20 @@
 // thread's valid windows before any min, and the counts (and hashes) are
 // stored at [row, column] of the [B, W] outputs.
 //
+// The murmur variant (khmer_tpu's same functions with hash_kind "murmur",
+// rows of ASCII bytes, 1 <= k <= 255) is the same kernel over murmur.cuh's
+// tile: the block stages its bytes and their complements (khmer's full
+// table) instead of packed codes, and each window costs two
+// MurmurHash3_x64_128s of k bytes instead of O(1); the gather and the
+// stores are the same.
+//
 // Bound: the larger of its bytes and its random sectors.  Bytes: per lane
 // 1 (code) read and 2 (count) written, 8 more with hashes, 4 (length) a
 // row; and the T 4-byte bins of each valid window, each a random 32-byte
 // sector of a table far larger than L2.  chip_smoke.py counts the bytes
 // with each bin read once.
 
+#include "murmur.cuh"
 #include "twobit.cuh"
 
 namespace {
@@ -36,9 +44,42 @@ using namespace twobit;
 
 constexpr int kRowThreads = 256;
 constexpr int kRowLanes = kRowThreads * kKeysPerThread;  // lanes per block
-constexpr int kRowWords = kRowLanes / 16 + 2;  // packed codes, with the halo
 
-template <int TM>
+// The exact 2-bit hash from packed codes (twobit.cuh)
+struct TwoBitTile {
+    static constexpr int kWords = kRowLanes / 16 + 2;  // with the halo
+    unsigned word[kWords];
+
+    // ends with the caller's block barrier
+    __device__ __forceinline__ void stage(const uint8_t* codes, long long n,
+                                          long long base, int, bool vec) {
+        if (threadIdx.x < kWords)
+            word[threadIdx.x] =
+                pack16(load16(codes, base + 16 * threadIdx.x, n, vec));
+    }
+    __device__ __forceinline__ u64 hash(int o, int k) const {
+        return canonical(word, o, 64 - 2 * k);
+    }
+};
+
+// The murmur hash from ASCII bytes and their complements (murmur.cuh)
+struct MurmurTile {
+    static constexpr int kBytes = murmur::tile_bytes(kRowLanes);
+    uint8_t lut[256];
+    __align__(16) uint8_t fwd[kBytes];
+    __align__(16) uint8_t comp[kBytes];
+
+    __device__ __forceinline__ void stage(const uint8_t* byts, long long n,
+                                          long long base, int k, bool) {
+        murmur::stage(byts, n, base, kRowLanes + k - 1 + murmur::kPad +
+                      murmur::kSlack, false, lut, fwd, comp);
+    }
+    __device__ __forceinline__ u64 hash(int o, int k) const {
+        return murmur::canonical(fwd, comp, murmur::kPad + o, k);
+    }
+};
+
+template <int TM, class Tile>
 __global__ void __launch_bounds__(kRowThreads)
 row_counts_kernel(const uint8_t* __restrict__ codes,
                   const int* __restrict__ lengths, long long n, int L,
@@ -47,16 +88,14 @@ row_counts_kernel(const uint8_t* __restrict__ codes,
                   const long long* __restrict__ offs,
                   const u64* __restrict__ recips, unsigned cap,
                   uint16_t* __restrict__ counts, u64* __restrict__ hashes) {
-    __shared__ unsigned word[kRowWords];
+    __shared__ Tile tile;
     __shared__ Geometry g;
     const long long base = (long long)blockIdx.x * kRowLanes;
     const int t = threadIdx.x;
-    if (t < kRowWords)
-        word[t] = pack16(load16(codes, base + 16 * t, n, vec));
+    tile.stage(codes, n, base, k, vec);
     load_geometry(g, T, sizes, offs, recips);
     __syncthreads();
     const int W = L - k + 1;
-    const int drop = 64 - 2 * k;
     const int o = kKeysPerThread * t;
     const long long i0 = base + o;
     if (i0 >= n) return;
@@ -75,7 +114,7 @@ row_counts_kernel(const uint8_t* __restrict__ codes,
         at[j] = -1;
         h[j] = 0;
         if (i0 + j < n) {
-            h[j] = canonical(word, o + j, drop);
+            h[j] = tile.hash(o + j, k);
             if (col < W) {
                 at[j] = row * W + col;
                 want[j] = col + k <= __ldg(lengths + row);
@@ -92,13 +131,13 @@ row_counts_kernel(const uint8_t* __restrict__ codes,
     }
 }
 
-template <int TM>
+template <int TM, class Tile>
 int launch(const void* codes, const void* lengths, long long n, int L, int k,
            const void* table, int T, const void* sizes, const void* offs,
            const void* recips, unsigned cap, void* counts, void* hashes,
            cudaStream_t s) {
     const unsigned blocks = (unsigned)((n + kRowLanes - 1) / kRowLanes);
-    row_counts_kernel<TM><<<blocks, kRowThreads, 0, s>>>(
+    row_counts_kernel<TM, Tile><<<blocks, kRowThreads, 0, s>>>(
         (const uint8_t*)codes, (const int*)lengths, n, L, k,
         (uintptr_t)codes % 16 == 0, (const unsigned*)table, T,
         (const long long*)sizes, (const long long*)offs, (const u64*)recips,
@@ -106,30 +145,52 @@ int launch(const void* codes, const void* lengths, long long n, int L, int k,
     return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// codes is [B, L] u8 and lengths [B] i32; counts ([B, W] u16) and hashes
-// ([B, W] u64, or null) are fresh allocations.
-extern "C" int khmer_row_counts(const void* codes, const void* lengths,
-                                long long B, int L, int k, const void* table,
-                                int T, const void* sizes, const void* offs,
-                                const void* recips, unsigned cap,
-                                void* counts, void* hashes, void* stream) {
-    if (k < 1 || k > 32 || L < k || T < 1 || T > kMaxTables)
+template <class Tile>
+int dispatch(const void* codes, const void* lengths, long long B, int L,
+             int k, int kmax, const void* table, int T, const void* sizes,
+             const void* offs, const void* recips, unsigned cap,
+             void* counts, void* hashes, void* stream) {
+    if (k < 1 || k > kmax || L < k || T < 1 || T > kMaxTables)
         return (int)cudaErrorInvalidValue;
     const long long n = B * (long long)L;
     if (n <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     switch (T) {
-    case 1: return launch<1>(codes, lengths, n, L, k, table, T, sizes, offs,
-                             recips, cap, counts, hashes, s);
-    case 2: return launch<2>(codes, lengths, n, L, k, table, T, sizes, offs,
-                             recips, cap, counts, hashes, s);
-    case 3: return launch<3>(codes, lengths, n, L, k, table, T, sizes, offs,
-                             recips, cap, counts, hashes, s);
-    case 4: return launch<4>(codes, lengths, n, L, k, table, T, sizes, offs,
-                             recips, cap, counts, hashes, s);
-    default: return launch<0>(codes, lengths, n, L, k, table, T, sizes, offs,
-                              recips, cap, counts, hashes, s);
+    case 1: return launch<1, Tile>(codes, lengths, n, L, k, table, T, sizes,
+                                   offs, recips, cap, counts, hashes, s);
+    case 2: return launch<2, Tile>(codes, lengths, n, L, k, table, T, sizes,
+                                   offs, recips, cap, counts, hashes, s);
+    case 3: return launch<3, Tile>(codes, lengths, n, L, k, table, T, sizes,
+                                   offs, recips, cap, counts, hashes, s);
+    case 4: return launch<4, Tile>(codes, lengths, n, L, k, table, T, sizes,
+                                   offs, recips, cap, counts, hashes, s);
+    default: return launch<0, Tile>(codes, lengths, n, L, k, table, T, sizes,
+                                    offs, recips, cap, counts, hashes, s);
     }
+}
+
+}  // namespace
+
+// codes is [B, L] u8 (2-bit codes) and lengths [B] i32; counts ([B, W]
+// u16) and hashes ([B, W] u64, or null) are fresh allocations.
+extern "C" int khmer_row_counts(const void* codes, const void* lengths,
+                                long long B, int L, int k, const void* table,
+                                int T, const void* sizes, const void* offs,
+                                const void* recips, unsigned cap,
+                                void* counts, void* hashes, void* stream) {
+    return dispatch<TwoBitTile>(codes, lengths, B, L, k, 32, table, T, sizes,
+                                offs, recips, cap, counts, hashes, stream);
+}
+
+// the murmur variant: byts is [B, L] u8 ASCII, 1 <= k <= 255
+extern "C" int khmer_row_counts_murmur(const void* byts, const void* lengths,
+                                       long long B, int L, int k,
+                                       const void* table, int T,
+                                       const void* sizes, const void* offs,
+                                       const void* recips, unsigned cap,
+                                       void* counts, void* hashes,
+                                       void* stream) {
+    return dispatch<MurmurTile>(byts, lengths, B, L, k, murmur::kMaxK, table,
+                                T, sizes, offs, recips, cap, counts, hashes,
+                                stream);
 }

@@ -13,6 +13,7 @@ import torch
 
 from khmer_tpu_torch import _u64
 from khmer_tpu_torch._config import MAX_KCOUNT
+from khmer_tpu_torch.ops.encode import COMP_LUT
 
 
 def hash2bit_canonical(codes, mask, k):
@@ -107,25 +108,122 @@ def bin_scatter_add(table, idx, vals):
 
 
 def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
-               want_hashes=False):
+               want_hashes=False, hash_kind="2bit"):
     """Canonical hash and count (capped at cap) of every window of a
-    padded [B, L] batch of codes with lengths[B]: (uint16 counts [B, W],
-    0 where the window runs past its row's length, and int64 hashes
-    [B, W] or None), W = L - k + 1.  The batch hashes as one flat stream,
-    so every window reads the codes the kernel reads."""
+    padded [B, L] batch of codes (2-bit codes, or ASCII bytes for
+    hash_kind "murmur") with lengths[B]: (uint16 counts [B, W], 0 where
+    the window runs past its row's length, and int64 hashes [B, W] or
+    None), W = L - k + 1.  The 2-bit batch hashes as one flat stream, so
+    every window reads the codes the kernel reads."""
     B, L = codes.shape
     W = L - k + 1
-    col = torch.arange(L, device=codes.device)
-    valid = (col[None, :] + k <= lengths[:, None].to(torch.int64)) & \
-        (col[None, :] < W)
-    h, _ = hash2bit_canonical(codes.reshape(-1),
-                              valid.to(torch.uint8).reshape(-1), k)
-    h = h.reshape(B, L)[:, :W].contiguous()
-    valid = valid[:, :W]
+    if hash_kind == "murmur":
+        h, valid = murmur_hashes(codes, lengths, k)
+    else:
+        col = torch.arange(L, device=codes.device)
+        valid = (col[None, :] + k <= lengths[:, None].to(torch.int64)) & \
+            (col[None, :] < W)
+        h, _ = hash2bit_canonical(codes.reshape(-1),
+                                  valid.to(torch.uint8).reshape(-1), k)
+        h = h.reshape(B, L)[:, :W].contiguous()
+        valid = valid[:, :W]
     counts = torch.zeros((B, W), dtype=torch.int32, device=codes.device)
     counts[valid] = sketch_get(table, h[valid], sizes, offsets, recips,
                                cap).to(torch.int32)
     return counts.to(torch.uint16), h if want_hashes else None
+
+
+# MurmurHash3_x64_128's constants, as int64 bit patterns
+_C1 = _u64.i64(0x87C37B91114253D5)
+_C2 = _u64.i64(0x4CF5AD432745937F)
+_F1 = _u64.i64(0xFF51AFD7ED558CCD)
+_F2 = _u64.i64(0xC4CEB9FE1A85EC53)
+
+# the bulk-consume complement: only A, C, G and T (khmer's full table is
+# ops/encode.py:COMP_LUT)
+_COMP_ACGT = np.full(256, ord(" "), np.uint8)
+for _a, _b in ("AT", "TA", "CG", "GC"):
+    _COMP_ACGT[ord(_a)] = ord(_b)
+
+
+def _fmix(x):
+    x = x ^ _u64.lsr(x, 33)
+    x = x * _F1
+    x = x ^ _u64.lsr(x, 33)
+    x = x * _F2
+    return x ^ _u64.lsr(x, 33)
+
+
+def _murmur_windows(b, W, k):
+    """MurmurHash3_x64_128 (h1, h2) of every k-byte window of int64 bytes
+    [B, L], columns 0..W-1; each block word is built from eight shifted
+    column slices (khmer_tpu/ops/hashing.py:_murmur_windows)."""
+    h1 = torch.zeros((b.shape[0], W), dtype=torch.int64, device=b.device)
+    h2 = torch.zeros_like(h1)
+
+    def word(off, nbytes=8):
+        acc = b[:, off:off + W]
+        for i in range(1, nbytes):
+            acc = acc | (b[:, off + i:off + i + W] << (8 * i))
+        return acc
+
+    for i in range(k // 16):
+        k1 = _u64.rotl(word(16 * i) * _C1, 31) * _C2
+        h1 = (_u64.rotl(h1 ^ k1, 27) + h2) * 5 + 0x52DCE729
+        k2 = _u64.rotl(word(16 * i + 8) * _C2, 33) * _C1
+        h2 = (_u64.rotl(h2 ^ k2, 31) + h1) * 5 + 0x38495AB5
+    tail, toff = k & 15, k - (k & 15)
+    if tail > 8:
+        h2 = h2 ^ (_u64.rotl(word(toff + 8, tail - 8) * _C2, 33) * _C1)
+    if tail:
+        h1 = h1 ^ (_u64.rotl(word(toff, min(tail, 8)) * _C1, 31) * _C2)
+    h1 = h1 ^ k
+    h2 = h2 ^ k
+    h1 = h1 + h2
+    h2 = h2 + h1
+    h1 = _fmix(h1)
+    h2 = _fmix(h2)
+    h1 = h1 + h2
+    return h1, h2 + h1
+
+
+def window_valid(lengths, W, k):
+    """bool [B, W]: window j of row b ends inside lengths[b]."""
+    col = torch.arange(W, device=lengths.device)
+    return col[None, :] + k <= lengths[:, None]
+
+
+def murmur_hashes(byts, lengths, k, assume_acgt=False):
+    """Canonical murmur hash of every window of ASCII rows [B, L]: h1 of
+    the window xor h1 of its reverse complement (the complemented row,
+    reversed, hashed and flipped back), or h1 alone where the two 128-bit
+    hashes are equal.  Returns (int64 [B, W], bool valid [B, W])."""
+    W = byts.shape[1] - k + 1
+    lut = torch.from_numpy(_COMP_ACGT if assume_acgt else COMP_LUT).to(
+        byts.device)
+    f1, f2 = _murmur_windows(byts.to(torch.int64), W, k)
+    crev = lut[byts.to(torch.int64)].to(torch.int64).flip(1)
+    r1, r2 = _murmur_windows(crev, W, k)
+    r1, r2 = r1.flip(1), r2.flip(1)
+    same = (f1 == r1) & (f2 == r2)
+    return (torch.where(same, f1, f1 ^ r1).contiguous(),
+            window_valid(lengths, W, k))
+
+
+def hll_update(byts, weights, k, p, m, registers):
+    """registers[h & (m - 1)] = max(itself, clz(h >> p) - p + 1) for
+    the assume_acgt murmur hash h of every window start i <= n - k of a
+    flat chunk whose weight is not 0 (uint8 registers, in place)."""
+    n = byts.numel()
+    if n < k:
+        return
+    lengths = torch.full((1,), n, dtype=torch.int32, device=byts.device)
+    h = murmur_hashes(byts[None, :], lengths, k, True)[0][0]
+    h = h[weights[:n - k + 1] != 0]
+    rho = _u64.clz(_u64.lsr(h, p)) - p + 1
+    regs = registers.to(torch.int64)
+    regs.scatter_reduce_(0, h & (m - 1), rho, "amax")
+    registers.copy_(regs.to(torch.uint8))
 
 
 def _bundle_rows(ids, valid, pre):

@@ -175,6 +175,44 @@ def estimate_optimal_with_K_and_f(num_kmers, des_fp_rate):
     return _SolverResult(int_n_tables, ht_size, mem_cap, fp_rate)
 
 
+def optimal_size(num_kmers, mem_cap=None, fp_rate=None):
+    """Pick solver variant by which constraint was given
+    (khmer_args.py:208-223)."""
+    if num_kmers is not None and mem_cap is not None and fp_rate is None:
+        return estimate_optimal_with_K_and_M(num_kmers, mem_cap)
+    if num_kmers is not None and mem_cap is None and fp_rate is not None:
+        return estimate_optimal_with_K_and_f(num_kmers, fp_rate)
+    raise TypeError("num_kmers and either mem_cap or fp_rate"
+                    " must be defined.")
+
+
+def graphsize_args_report(unique_kmers, fp_rate):
+    """Tabulate suggested geometries (khmer_args.py:336-376)."""
+    to_print = ['']
+    to_print.append('number of unique k-mers: \t{0}'.format(unique_kmers))
+    to_print.append('false positive rate: \t{:>.3f}'.format(fp_rate))
+    to_print.append('')
+    to_print.append('If you have expected false positive rate to achieve:')
+    to_print.append('expected_fp\tnumber_hashtable(Z)\tsize_hashtable(H)\t'
+                    'expected_memory_usage')
+    for fp in range(1, 10):
+        num_tables, table_size, mem_cap, fp = \
+            optimal_size(unique_kmers, fp_rate=fp / 10.0)
+        to_print.append('{:11.3f}\t{:19}\t{:17e}\t{:21e}'.format(
+            fp, num_tables, table_size, mem_cap))
+    mem_list = [1, 5, 10, 20, 50, 100, 200, 300, 400, 500, 1000, 2000, 5000]
+    to_print.append('')
+    to_print.append('If you have expected memory to use:')
+    to_print.append('expected_memory_usage\tnumber_hashtable(Z)\t'
+                    'size_hashtable(H)\texpected_fp')
+    for mem in mem_list:
+        num_tables, table_size, mem_cap, fp = \
+            optimal_size(unique_kmers, mem_cap=mem * 1000000000)
+        to_print.append('{:21e}\t{:19}\t{:17e}\t{:11.3f}'.format(
+            mem_cap, num_tables, table_size, fp))
+    return "\n".join(to_print)
+
+
 def _check_fp_rate(args, desired_max_fp):
     """Validate/derive memory settings from -U/-M/--fp-rate
     (khmer_args.py:378-436)."""
@@ -384,7 +422,7 @@ def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
         sys.exit(1)
 
     if getattr(args, 'small_count', False):
-        not_ported("--small-count (SmallCountgraph)", "slice 3")
+        not_ported("--small-count (SmallCountgraph)", "slice 3b")
 
     tablesize = calculate_graphsize(args, 'countgraph', multiplier=multiplier)
     cg = khmer.Countgraph(ksize, tablesize, args.n_tables, device=device)
@@ -396,9 +434,9 @@ def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
 def create_counttable(args, ksize=None, multiplier=1.0, fp_rate=0.1,
                       device=None):
     """Create the table khmer_tpu's create_counttable makes for these CLI
-    args (khmer_args.py:640-680), on `device`.  The port has the exact
-    2-bit Countgraph only: -H murmur (Counttable) and --small-count
-    (SmallCountgraph) exit with an error until their slice is ported."""
+    args (khmer_args.py:640-680), on `device`: a Countgraph, or a
+    Counttable for -H murmur (any k up to 255).  --small-count
+    (SmallCountgraph) exits with an error until its slice is ported."""
     args = _check_fp_rate(args, fp_rate)
     _check_n_tables(args)
     if ksize is None:
@@ -411,17 +449,23 @@ def create_counttable(args, ksize=None, multiplier=1.0, fp_rate=0.1,
                         "supports k-mer sizes <= 32.")
             print_error("** See -H/--hash-function for alternatives.")
             sys.exit(1)
-    elif hash_function == 'murmur':
-        not_ported("-H murmur (Counttable)", "slice 3")
-    else:
+    elif hash_function != 'murmur':
         print_error("\n** Error, unknown hash function")
         sys.exit(1)
 
     if getattr(args, 'small_count', False):
-        not_ported("--small-count (SmallCountgraph)", "slice 3")
+        if hash_function == 'murmur':
+            print_error("\n** ERROR: hash function 'murmur' does not "
+                        "support small counts yet.")
+            sys.exit(1)
+        not_ported("--small-count (SmallCountgraph)", "slice 3b")
 
-    tablesize = calculate_graphsize(args, 'countgraph', multiplier=multiplier)
-    return khmer.Countgraph(ksize, tablesize, args.n_tables, device=device)
+    if hash_function == 'murmur':
+        tabletype, tableclass = 'counttable', khmer.Counttable
+    else:
+        tabletype, tableclass = 'countgraph', khmer.Countgraph
+    tablesize = calculate_graphsize(args, tabletype, multiplier=multiplier)
+    return tableclass(ksize, tablesize, args.n_tables, device=device)
 
 
 def not_ported(feature, where):

@@ -26,6 +26,17 @@ for _ch in "ACGT":
     _CLEAN_LUT[ord(_ch)] = ord(_ch)
     _CLEAN_LUT[ord(_ch.lower())] = ord(_ch)
 
+# khmer's IUPAC complement table, reproduced character-for-character from
+# the `tbl` macro at reference kmer_hash.cc:51-54: 64 spaces, then the
+# segment below indexed by (char - 64), repeated for lowercase input
+# (lowercase complements to UPPERCASE).  Characters outside the table
+# complement to ' ', as in the reference.
+_TBL_SEGMENT = " TVGH FCD  M KN   YSAABW R"
+COMP_LUT = np.full(256, ord(" "), dtype=np.uint8)
+for _j, _c in enumerate(_TBL_SEGMENT):
+    COMP_LUT[64 + _j] = ord(_c)
+    COMP_LUT[96 + _j] = ord(_c)
+
 
 def _as_bytes(seq):
     if isinstance(seq, str):

@@ -7,39 +7,33 @@ function):
   (``_hash``), canonical form = min(forward, reverse-complement)
   (``uniqify_rc``, include/oxli/kmer_hash.hh:93).
 * invertible ``_revhash``: src/oxli/kmer_hash.cc:139-155.
+* MurmurHash3_x64_128-based hash for unbounded k: src/oxli/kmer_hash.cc:
+  191-227 -- ``h(fwd) ^ h(revcomp)`` with a self-complement special case.
 
 The scalar functions are copies of khmer_tpu/ops/hashing.py.  The
-batched hash is kernel K1 (kernels/csrc/hash2bit.cu), which emits the
-windows of a flat code chunk in stream order; the TPU kernel's u32-pair
-arithmetic and phase-major lane order are not ported.  Kernel K5
-(kernels/csrc/rows.cu) hashes padded rows and reads their counts in the
-same pass.
+batched 2-bit hash is kernel K1 (kernels/csrc/hash2bit.cu), which emits
+the windows of a flat code chunk in stream order; the TPU kernel's
+u32-pair arithmetic and phase-major lane order are not ported.  The
+batched murmur hash is kernel K8 (kernels/csrc/murmur.cu), over padded
+ASCII rows or one flat chunk.  Kernel K5 (kernels/csrc/rows.cu) hashes
+padded rows with either hash and reads their counts in the same pass.
 """
 
 import numpy as np
 import torch
 
 from khmer_tpu_torch import kernels
+from khmer_tpu_torch.ops.encode import COMP_LUT
 
 _TWOBIT = {"A": 0, "T": 1, "C": 2, "G": 3}
 _REVTWOBIT = "ATCG"
 
-# khmer's IUPAC complement table, reproduced character-for-character from
-# the `tbl` macro at reference kmer_hash.cc:51-54: 64 spaces, then the
-# segment below indexed by (char - 64), repeated for lowercase input
-# (lowercase complements to UPPERCASE).  Characters outside the table
-# complement to ' ', as in the reference.
-_TBL_SEGMENT = " TVGH FCD  M KN   YSAABW R"
-_COMP_LUT = np.full(256, ord(" "), dtype=np.uint8)
-for _j, _c in enumerate(_TBL_SEGMENT):
-    _COMP_LUT[64 + _j] = ord(_c)
-    _COMP_LUT[96 + _j] = ord(_c)
 
 
 def reverse_complement(seq: str) -> str:
     """Reverse complement using khmer's `tbl` (kmer_hash.cc:51-54,157-166)."""
     arr = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
-    return _COMP_LUT[arr][::-1].tobytes().decode("ascii")
+    return COMP_LUT[arr][::-1].tobytes().decode("ascii")
 
 
 def _check_k(kmer, k):
@@ -83,6 +77,104 @@ def reverse_hash(khash: int, k: int) -> str:
     return "".join(reversed(out))
 
 
+# --- MurmurHash3_x64_128 (public algorithm, Austin Appleby, public domain) --
+
+_MASK64 = (1 << 64) - 1
+
+
+def _rotl64(x, r):
+    return ((x << r) | (x >> (64 - r))) & _MASK64
+
+
+def _fmix64(k):
+    k ^= k >> 33
+    k = (k * 0xFF51AFD7ED558CCD) & _MASK64
+    k ^= k >> 33
+    k = (k * 0xC4CEB9FE1A85EC53) & _MASK64
+    k ^= k >> 33
+    return k
+
+
+_C1 = 0x87C37B91114253D5
+_C2 = 0x4CF5AD432745937F
+
+
+def murmurhash3_x64_128(data: bytes, seed: int = 0):
+    """Pure-python MurmurHash3_x64_128; returns (out0, out1)."""
+    length = len(data)
+    h1 = h2 = seed & _MASK64
+    nblocks = length // 16
+    for i in range(nblocks):
+        k1 = int.from_bytes(data[i * 16: i * 16 + 8], "little")
+        k2 = int.from_bytes(data[i * 16 + 8: i * 16 + 16], "little")
+        k1 = (k1 * _C1) & _MASK64
+        k1 = _rotl64(k1, 31)
+        k1 = (k1 * _C2) & _MASK64
+        h1 ^= k1
+        h1 = _rotl64(h1, 27)
+        h1 = (h1 + h2) & _MASK64
+        h1 = (h1 * 5 + 0x52DCE729) & _MASK64
+        k2 = (k2 * _C2) & _MASK64
+        k2 = _rotl64(k2, 33)
+        k2 = (k2 * _C1) & _MASK64
+        h2 ^= k2
+        h2 = _rotl64(h2, 31)
+        h2 = (h2 + h1) & _MASK64
+        h2 = (h2 * 5 + 0x38495AB5) & _MASK64
+    tail = data[nblocks * 16:]
+    k1 = k2 = 0
+    for i in range(len(tail) - 1, 7, -1):
+        k2 |= tail[i] << (8 * (i - 8))
+    for i in range(min(len(tail), 8) - 1, -1, -1):
+        k1 |= tail[i] << (8 * i)
+    if len(tail) > 8:
+        k2 = (k2 * _C2) & _MASK64
+        k2 = _rotl64(k2, 33)
+        k2 = (k2 * _C1) & _MASK64
+        h2 ^= k2
+    if len(tail) > 0:
+        k1 = (k1 * _C1) & _MASK64
+        k1 = _rotl64(k1, 31)
+        k1 = (k1 * _C2) & _MASK64
+        h1 ^= k1
+    h1 ^= length
+    h2 ^= length
+    h1 = (h1 + h2) & _MASK64
+    h2 = (h2 + h1) & _MASK64
+    h1 = _fmix64(h1)
+    h2 = _fmix64(h2)
+    h1 = (h1 + h2) & _MASK64
+    h2 = (h2 + h1) & _MASK64
+    return h1, h2
+
+
+def hash_murmur3_scalar(kmer: str):
+    """Canonical murmur k-mer hash: ``h(fwd) ^ h(revcomp)``, or ``h`` for a
+    self-complementary k-mer (reference kmer_hash.cc:199-227)."""
+    h = murmurhash3_x64_128(kmer.encode("ascii"))[0]
+    rev = reverse_complement(kmer)
+    if rev == kmer:
+        return h
+    r = murmurhash3_x64_128(rev.encode("ascii"))[0]
+    return h ^ r
+
+
+def hash_no_rc_murmur3_scalar(kmer: str):
+    return murmurhash3_x64_128(kmer.encode("ascii"))[0]
+
+
+def murmur_window_hashes(byts, k: int, assume_acgt=False):
+    """Canonical murmur hashes of every window of one flat uint8 tensor of
+    ASCII bytes, int64 [n - k + 1] (empty when n < k), in one K8 call:
+    khmer_tpu/ops/hashing.py:kmer_hashes_murmur_bytes over a single row,
+    both forms (assume_acgt: the bulk-consume complement)."""
+    n = byts.numel()
+    if n < k:
+        return torch.zeros(0, dtype=torch.int64, device=byts.device)
+    lengths = torch.full((1,), n, dtype=torch.int32, device=byts.device)
+    return kernels.murmur_hashes(byts[None, :], lengths, k, assume_acgt)[0][0]
+
+
 def chunk_hashes(codes, mask, k: int):
     """Canonical hashes and weights of every window start of a flat
     chunk (uint8 codes and loader mask, one tensor each): the port of
@@ -117,17 +209,18 @@ def kmer_hashes_2bit(codes, lengths, k: int):
 
 
 def row_hashes_counts(codes, lengths, k: int, geom, table, cap,
-                      want_hashes=False):
+                      want_hashes=False, hash_kind="2bit"):
     """Counts (and on request hashes) of every window of a padded [B, L]
-    uint8 code tensor with int32 lengths[B], read from a sketch (flat
-    table and its geometry) capped at cap, in one pass of kernel K5: the
-    port of khmer_tpu/hashtable.py:_make_row_hashes_counts_fn and
+    uint8 tensor (2-bit codes, or ASCII bytes for hash_kind "murmur")
+    with int32 lengths[B], read from a sketch (flat table and its
+    geometry) capped at cap, in one pass of kernel K5: the port of
+    khmer_tpu/hashtable.py:_make_row_hashes_counts_fn and
     _make_row_counts_fn.  Returns (uint16 counts [B, W], int64 hashes
     [B, W] or None, bool valid [B, W]), W = L - k + 1; a count is 0
     where the window is not valid."""
-    if k > 32:
+    if hash_kind == "2bit" and k > 32:
         raise ValueError("k must be <= 32 for the 2-bit hash")
     counts, hashes = kernels.row_counts(codes, lengths, k, table, *geom, cap,
-                                        want_hashes)
+                                        want_hashes, hash_kind)
     col = torch.arange(counts.shape[1], device=codes.device)
     return counts, hashes, col[None, :] + k <= lengths[:, None]

@@ -810,3 +810,175 @@ def test_streaming_filters_small_on_card(dev, tmp_path):
         out.append(got)
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+# --- slice 3a: the murmur kernels (K8, K9, K5's murmur variant) -----------
+
+MURMUR_BYTES = np.frombuffer(b"ACGTACGTACGTacgtNnRYKMSWBDHVU.- \x00\xff",
+                             np.uint8)
+
+
+def _ascii_rows(rng, B, L, k, offset, mixed=0.2):
+    """ASCII rows [B, L] as a view `offset` bytes into their buffer, a
+    share `mixed` of their bytes lowercase, N, IUPAC or other; ragged
+    lengths (0, below k, k, up to L)."""
+    buf = rng.choice(np.frombuffer(b"ACGT", np.uint8), offset + B * L)
+    hit = rng.random(buf.size) < mixed
+    buf[hit] = rng.choice(MURMUR_BYTES, int(hit.sum()))
+    lens = rng.integers(0, L + 1, B)
+    lens[:4] = [0, max(k - 1, 0), k, L][:min(4, B)]
+    return torch.from_numpy(buf), torch.from_numpy(lens.astype(np.int32))
+
+
+MURMUR_TILE = 256  # window starts per block of csrc/murmur.cu and hll.cu
+
+
+@pytest.mark.parametrize("acgt", [False, True], ids=["full", "acgt"])
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 32, 33, 255])
+def test_murmur_hashes(dev, k, offset, acgt):
+    """K8 on ragged rows (rows shorter than k included) of ASCII with
+    non-ACGT bytes, both complement forms, every window valid or not;
+    then the flat form of one row across many tiles."""
+    rng = np.random.default_rng(k * 10 + offset)
+    for B, L in ((37, k + 70), (3, k), (1, 5 * MURMUR_TILE + k + 3)):
+        buf, lengths = _ascii_rows(rng, B, L, k, offset)
+        byts = buf[offset:].view(B, L)
+        h, v = kernels.murmur_hashes(buf.to(dev)[offset:].view(B, L),
+                                     lengths.to(dev), k, acgt)
+        ph, pv = plain.murmur_hashes(byts, lengths, k, acgt)
+        assert torch.equal(h.cpu(), ph) and torch.equal(v.cpu(), pv)
+    assert (_u64.to_numpy(ph) >= 1 << 63).any() or k == 255
+
+
+@pytest.mark.parametrize("case", ["masked", "hot", "short"])
+@pytest.mark.parametrize("p", [4, 15, 16])
+def test_hll_update(dev, p, case):
+    """K9 from zero registers and from filled ones: a third of the lanes
+    masked; half the lanes one k-mer (poly-A), so on one register; a
+    chunk shorter than k, and of k.  h >> p == 0 has probability
+    2**(p - 64) a window and is not reached from data:
+    test_torch_hll.py checks the plain version's clz(0) = 64."""
+    rng = np.random.default_rng(p)
+    k = 20 if case != "short" else 33
+    n = 3 * MURMUR_TILE + 7 if case != "short" else k
+    byts = rng.choice(np.frombuffer(b"ACGTN", np.uint8), n)
+    if case == "hot":
+        byts[: n // 2] = ord("A")
+    weights = (rng.random(n) < (0.66 if case == "masked" else 1.0))
+    weights = torch.from_numpy(weights.astype(np.uint8))
+    byts = torch.from_numpy(byts)
+    m = 1 << p
+    for start in (torch.zeros(m, dtype=torch.uint8),
+                  torch.from_numpy(rng.integers(0, 8, m, dtype=np.uint8))):
+        regs = start.clone()
+        r = regs.to(dev)
+        kernels.hll_update(byts.to(dev), weights.to(dev), k, p, m, r)
+        plain.hll_update(byts, weights, k, p, m, regs)
+        assert torch.equal(r.cpu(), regs)
+        assert case == "short" or not torch.equal(regs, start)
+    short = byts[: k - 1]
+    r = torch.zeros(m, dtype=torch.uint8, device=dev)
+    kernels.hll_update(short.to(dev), weights[: k - 1].to(dev), k, p, m, r)
+    assert not bool(r.any())
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("k", [1, 20, 51, 255])
+@pytest.mark.parametrize("T", [1, 4, 5])
+def test_row_counts_murmur(dev, k, offset, T):
+    """K5's murmur variant on ragged ASCII rows with non-ACGT bytes, caps
+    255 and 65535, with and without hashes."""
+    rng = np.random.default_rng(k * 1000 + T + offset)
+    B, L = 211, 64 + k
+    buf, lengths = _ascii_rows(rng, B, L, k, offset)
+    sizes = _primes(T)
+    table = _table(rng, sizes, 400)
+    geom = SketchSpec("byte", sizes).geometry("cpu")
+    gdev = [g.to(dev) for g in geom]
+    byts = buf[offset:].view(B, L)
+    kernels.reset_launches()
+    for cap in (255, 65535):
+        for want in (False, True):
+            c, h = kernels.row_counts(buf.to(dev)[offset:].view(B, L),
+                                      lengths.to(dev), k, table.to(dev),
+                                      *gdev, cap, want, "murmur")
+            pc, ph = plain.row_counts(byts, lengths, k, table, *geom, cap,
+                                      want, "murmur")
+            assert torch.equal(c.cpu().to(torch.int32), pc.to(torch.int32))
+            if want:
+                assert torch.equal(h.cpu(), ph)
+    assert kernels.ROW_COUNTS_BY_HASH == {"2bit": 0, "murmur": 4}
+
+
+def test_sketch_ops_on_murmur_hashes(dev):
+    """K2 and K3 on murmur hashes (all 64 bits used, half with the top bit
+    set) against their plain versions, at the bench primes; and the
+    Barrett h % p of such hashes exact: with table[i] = i, one table of
+    p = 65521 bins, K3 returns h % p itself."""
+    rng = np.random.default_rng(23)
+    buf, lengths = _ascii_rows(rng, 64, 164, 51, 0, mixed=0.0)
+    h, _ = plain.murmur_hashes(buf.view(64, 164), lengths, 51, True)
+    h = h.reshape(-1)
+    assert (_u64.to_numpy(h) >= 1 << 63).mean() > 0.4
+    spec = SketchSpec("byte", tuple(get_n_primes_near_x(4, 1e8)))
+    geom = spec.geometry(dev)
+    table = torch.zeros(spec.total_bins + 1, dtype=torch.int32, device=dev)
+    hd = h.to(dev)
+    w = torch.ones(h.numel(), dtype=torch.int32, device=dev)
+    nu = torch.zeros(1, dtype=torch.int64, device=dev)
+    tp, nup = table.clone(), nu.clone()
+    assert torch.equal(kernels.sketch_update(table, hd, w, *geom, nu),
+                       plain.sketch_update(tp, hd, w, *geom, nup))
+    assert torch.equal(table, tp) and torch.equal(nu, nup)
+    assert torch.equal(kernels.sketch_get(table, hd, *geom, 65535),
+                       plain.sketch_get(tp, hd, *geom, 65535))
+    one = SketchSpec("byte", (65521,))
+    ident = torch.arange(65522, dtype=torch.int32, device=dev)
+    got = kernels.sketch_get(ident, hd, *one.geometry(dev), 65535)
+    want = [int(x) % 65521 for x in _u64.to_numpy(h)]
+    assert got.cpu().to(torch.int64).tolist() == want
+
+
+def test_murmur_tables_small_on_card(dev, tmp_path):
+    """A Counttable at k = 51 (consume_seqfile, count_rows, the
+    normalize-by-median and trim-low-abund batch steps, the histogram)
+    and HLLCounters at p = 14 and 16 on the card equal the CPU run on
+    generated reads."""
+    from khmer_tpu_torch import Counttable, HLLCounter, Nodetable
+
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, 8)
+    rng = np.random.default_rng(8)
+    genome = "".join(rng.choice(list("ACGT"), 8000))
+    reads = [genome[s:s + 100] for s in rng.integers(0, 7900, 1024)]
+    batches = [[(reads[2 * i], reads[2 * i + 1] if i % 9 else None)
+                for i in range(b * 256, (b + 1) * 256)] for b in range(2)]
+    out = []
+    kernels.reset_launches()
+    for d in (dev, "cpu"):
+        ct = Counttable(51, 20011, 4, device=d)
+        got = [torch.tensor(ct.consume_seqfile(fa))]
+        got += [torch.from_numpy(c.astype(np.int32))
+                for c in ct.count_rows(reads[:50] + ["ACGTNacgt" * 8])]
+        got.append(torch.tensor(ct.abundance_distribution(
+            fa, Nodetable(51, 1, 1, primes=ct.hashsizes(), device=d))))
+        dn = Counttable(51, 20011, 4, device=d)
+        tr = Counttable(51, 20011, 4, device=d)
+        for batch in batches:
+            got.append(dn.diginorm_batch(batch, 6).cpu())
+            got += [t.cpu() for t in tr.trim_pass1_batch(batch, 5, 8, 2)]
+        for t in (ct, dn, tr):
+            got += [t.storage.table.cpu(), torch.tensor(t.n_unique_kmers())]
+        for e in (0.01, 0.005):
+            hll = HLLCounter(e, 51, device=d)
+            got.append(torch.tensor(hll.consume_seqfile(fa)))
+            hll.consume_string("acgtNACGT" * 20)
+            got.append(torch.tensor(hll.counters + [len(hll)]))
+        out.append(got)
+        if d == dev:
+            launches = dict(kernels.LAUNCHES)
+    for a, b in zip(*out):
+        assert torch.equal(a.cpu(), b)
+    assert launches["murmur_hashes"] and launches["hll_update"] and \
+        kernels.ROW_COUNTS_BY_HASH["murmur"]
