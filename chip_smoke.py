@@ -29,7 +29,10 @@ Phases (any failure exits non-zero; nothing is caught):
      of the table sizes; both histogram totals equal to the distinct
      count, which is within one membership window).  Every kernel of
      this path must have been launched by this run; its peak device
-     memory is printed;
+     memory is printed, and the save's and load's byte packing
+     (pack_oxli_bytes, unpack_oxli_bytes, occupied_bins: plain torch and
+     numpy) is timed on the loaded table beside its bytes bound and its
+     calls on the path;
   3b. slice-2 kernels against their plain versions on the card, exact:
      K5 on 16,384 rows x 148 codes of the phase-4 reads against the
      phase-4 .ct, with and without hashes (and K1 + K3 back to back on
@@ -82,6 +85,27 @@ Phases (any failure exits non-zero; nothing is caught):
      torch ops on the card).  K8, K9 and K5's murmur
      variant must have been launched by this run; walls, device busy
      shares and peak device memory are printed.
+  7. tag-based partitioning (BASELINE config 5) at the documented
+     workflow's flags (docs/user/partitioning-big-data.md), the table cut
+     to -x 1e8: load-graph -k 32 -N 4 -x 1e8, partition-graph -s 1e5 (and
+     a second run with --no-big-traverse on a copy of the graph),
+     merge-partitions, annotate-partitions and extract-partitions on
+     400,000 100-bp reads (0.5% substitutions, half reverse-complemented)
+     over 1,000 random genomes of 1-8 kbases, through the port's script
+     entry points; then SubsetPartition.do_partition_device (K10) and
+     do_partition on the loaded graph.  Held against (a) the same scripts
+     through the plain versions on the card (every file in the working
+     directory after every script identical) and (b) the device engine's
+     partitions, as sets of tags, equal to do_partition's.  K1, K2, K3
+     and K10 must have been launched by this run; walls, reads/s, device
+     busy shares, the largest device items, tags, edges, CC rounds and
+     peak device memory are printed.
+  3d. K10 against its plain version on the card, exact: labels and the
+     changed flag at rounds = 1 and 8 from arange labels, and the labels
+     and number of calls at connected_components' fixpoint, on a path of
+     2**22 nodes, a random graph of 2**22 nodes and 2**24 edges (an
+     eighth of them repeats, an eighth padding (0, 0)) and phase 7's star
+     edge list; CUDA-event times a call of 8 and of 1 round.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -103,6 +127,7 @@ from unittest import mock
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+STARTED = time.perf_counter()
 K = 20
 KS = (1, 2, 15, 16, 17, 20, 31, 32)
 TABLE_SIZE = 1e8  # bins per table; 4 tables (bench.py's countgraph)
@@ -128,6 +153,8 @@ SOURCES = {
                       "khmer_tpu/ops/hashing.py:507"),
     "hll_update": ("khmer_tpu_torch/kernels/csrc/hll.cu",
                    "khmer_tpu/hllcounter.py:62"),
+    "cc_rounds": ("khmer_tpu_torch/kernels/csrc/cc.cu",
+                  "khmer_tpu/partition_device.py:42"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
@@ -146,6 +173,15 @@ HLL_PS = (14, 16)  # -e 0.01 and 0.005
 MURMUR_PATH = ("murmur_hashes", "hll_update", "row_counts", "sketch_update",
                "sketch_get", "diginorm_chain")
 FLAT = 1 << 23  # bases of the flat chunk in phase 3c
+# the save's and load's byte packing, timed in phase 4
+PACKING = ("pack_oxli_bytes", "unpack_oxli_bytes", "occupied_bins")
+# the partitioning path (phase 7): BASELINE config 5 at the documented
+# workflow's flags (docs/user/partitioning-big-data.md), the table cut
+PARTITION_K = 32
+PARTITION_GENOMES = 1000
+PARTITION_READS = 400_000
+PARTITION_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
+                  "cc_rounds")
 
 
 def fail(msg):
@@ -644,7 +680,7 @@ def sync(dev):
 def main_path(seed, card, dev, tmp, genome_mb=3.2):
     import torch
 
-    from khmer_tpu_torch import Countgraph, Nodegraph, kernels
+    from khmer_tpu_torch import Countgraph, Nodegraph, kernels, storage
     from khmer_tpu_torch.kernels import plain
     from khmer_tpu_torch.primes import get_n_primes_near_x
 
@@ -662,7 +698,19 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    got = run_scripts(os.path.join(tmp, "kernels"), fa, overlay_fa, dev)
+    # the save's and load's byte packing (plain torch and numpy): calls
+    packing = dict.fromkeys(PACKING, 0)
+
+    def counted(name):
+        fn = getattr(storage, name)
+
+        def call(*a, **kw):
+            packing[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    with mock.patch.multiple(storage, **{n: counted(n) for n in PACKING}):
+        got = run_scripts(os.path.join(tmp, "kernels"), fa, overlay_fa, dev)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log("main path launches: {}".format(json.dumps(launches)))
@@ -751,10 +799,12 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
     del cg, tracking
     sync(dev)
     t0 = time.perf_counter()
-    Countgraph.load(ct, device=dev)
+    loaded = Countgraph.load(ct, device=dev)
     sync(dev)
     log("save: {:.3f} s, load: {:.3f} s ({} byte .ct) [{}]".format(
         t_save, time.perf_counter() - t0, os.path.getsize(ct), card))
+    time_packing(loaded.storage, packing, dev, card)
+    del loaded
     if dev.type == "cuda":
         cg = Countgraph(K, TABLE_SIZE, 4, device=dev)
         device_share("consume", lambda: cg.consume_seqfile(fa), card)
@@ -762,6 +812,41 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
         device_share("histogram",
                      lambda: cg.abundance_distribution(fa, tracking), card)
     return launches, uniq
+
+
+def time_packing(st, calls, dev, card):
+    """The OXLI packing of a loaded 4 x 1e8-bin table on the card (plain
+    torch and numpy, not kernels): the wall of one call, synchronised,
+    median of three, beside its bytes bound (the table's bins and the
+    stream's bytes, each moved once) and its calls on the main path."""
+    from khmer_tpu_torch.ops.sketch_ops import (occupied_bins,
+                                                pack_oxli_bytes,
+                                                unpack_oxli_bytes)
+
+    spec = st.spec
+    raw = pack_oxli_bytes(spec, st.table)
+
+    def wall(fn):
+        times = []
+        for _ in range(3):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    table_bytes = 4 * (spec.total_bins + 1)
+    for name, fn, nbytes in (
+            ("pack_oxli_bytes", lambda: pack_oxli_bytes(spec, st.table),
+             table_bytes + raw.size),
+            ("unpack_oxli_bytes", lambda: unpack_oxli_bytes(spec, raw, dev),
+             raw.size + table_bytes),
+            ("occupied_bins", lambda: occupied_bins(spec, st.table),
+             4 * spec.tablesizes[0])):
+        log("packing {}: {:.4f} ms a call (wall, synchronised), bound {:.4f} "
+            "ms ({} bytes), {} calls on the main path [{}]".format(
+                name, wall(fn), bound_ms(nbytes), nbytes, calls[name], card))
 
 
 def device_share(name, fn, card):
@@ -773,8 +858,10 @@ def device_share(name, fn, card):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events are not read, and on a
+    # run of many small ops (phase 7's searches) collecting them took
+    # longer than the run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1563,7 +1650,8 @@ def run_murmur(card, dev, tmp, reads_fa, pairs_fa, uniq4):
             missing, "" if murmur_rows else " and row_counts (murmur)"))
     for name, wall in got["walls"].items():
         busy = got["busy"].get(name)
-        mb = (64 + 128 if name.startswith("unique") else 128)
+        mb = SLICE2_READS * 100 / 1e6 + (64 if name.startswith("unique")
+                                          else 0)
         log("{}: {:.3f} s (profiled), {:.2f} Mbases/s, device busy {} "
             "[{}]".format(name, wall, mb / wall,
                           "not measured" if busy is None else
@@ -1606,6 +1694,326 @@ def run_murmur(card, dev, tmp, reads_fa, pairs_fa, uniq4):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: tag-based partitioning at full width
+# ---------------------------------------------------------------------------
+
+
+def make_metagenome(path, seed, n_genomes, n_reads, readlen=100, err=0.005):
+    """A metagenome's reads: n_genomes random genomes of 1-8 kbases, reads
+    of `readlen` bases drawn over them in proportion to their length, a
+    share `err` of bases substituted and half of the reads
+    reverse-complemented.  Records are 112 bytes: '>m' + 8 digits, then
+    the sequence.  Returns the bases of all genomes."""
+    rng = np.random.default_rng(seed + 3)
+    lens = rng.integers(1000, 8001, n_genomes)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    genome = rng.integers(0, 4, int(offs[-1]), dtype=np.uint8)
+    starts = lens - readlen + 1
+    which = rng.choice(n_genomes, n_reads, p=starts / starts.sum())
+    at = offs[which] + (rng.random(n_reads) * starts[which]).astype(np.int64)
+    reads = genome[at[:, None] + np.arange(readlen)]
+    hit = rng.random(reads.shape, dtype=np.float32) < err
+    reads[hit] = (reads[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    rc = rng.random(n_reads) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    rec = np.empty((n_reads, 12 + readlen), np.uint8)
+    rec[:, 0:2] = np.frombuffer(b">m", np.uint8)
+    pows = 10 ** np.arange(7, -1, -1, dtype=np.int64)
+    rec[:, 2:10] = (np.arange(n_reads)[:, None] // pows) % 10 + ord("0")
+    rec[:, 10] = ord("\n")
+    rec[:, 11:11 + readlen] = np.frombuffer(b"ACGT", np.uint8)[reads]
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+    return int(offs[-1])
+
+
+def partition_scripts(workdir, fa, dev, profile, card):
+    """The documented partitioning workflow on `dev`, in `workdir`
+    (docs/user/partitioning-big-data.md, with the table cut to -x 1e8):
+    load-graph, partition-graph (and a second run with --no-big-traverse
+    on a copy of the graph, base gn), merge-partitions of both,
+    annotate-partitions and extract-partitions.  Returns the walls (and
+    device busy seconds when `profile`) and, after each script, the
+    sha256 of every file in workdir."""
+    import shutil
+
+    from khmer_tpu_torch.scripts import (annotate_partitions,
+                                         extract_partitions, load_graph,
+                                         merge_partitions, partition_graph)
+
+    os.makedirs(workdir)
+    runs = [("load-graph", load_graph.main,
+             ["-k", str(PARTITION_K), "-N", "4", "-x", repr(TABLE_SIZE),
+              "g", fa]),
+            ("partition-graph", partition_graph.main, ["-s", "1e5", "g"]),
+            ("partition-graph --no-big-traverse", partition_graph.main,
+             ["--no-big-traverse", "-s", "1e5", "gn"]),
+            ("merge-partitions", merge_partitions.main, ["g"]),
+            ("merge-partitions (gn)", merge_partitions.main, ["gn"]),
+            ("annotate-partitions", annotate_partitions.main, ["g", fa]),
+            ("extract-partitions", extract_partitions.main,
+             ["g", os.path.basename(fa) + ".part"])]
+    out = {"walls": {}, "busy": {}, "files": {}}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for name, fn, argv in runs:
+            if name == "partition-graph --no-big-traverse":
+                shutil.copy("g", "gn")
+                shutil.copy("g.tagset", "gn.tagset")
+            err = io.StringIO()
+            run = lambda: fn(argv, device=dev)  # noqa: E731
+            sync(dev)
+            try:
+                with contextlib.redirect_stderr(err):
+                    if profile:
+                        wall, busy = device_share(name, run, card)
+                        out["busy"][name] = busy
+                    else:
+                        t0 = time.perf_counter()
+                        run()
+                        sync(dev)
+                        wall = time.perf_counter() - t0
+            except BaseException:
+                sys.stderr.write(err.getvalue()[-20000:])
+                raise
+            out["walls"][name] = wall
+            log("phase 7 {} done, {:.1f} s into the smoke".format(
+                name, time.perf_counter() - STARTED))
+            out["files"][name] = {}
+            for f in sorted(os.listdir(".")):
+                with open(f, "rb") as fh:
+                    out["files"][name][f] = hashlib.sha256(
+                        fh.read()).hexdigest()
+            gc.collect()
+        out["sizes"] = {f: os.path.getsize(f) for f in sorted(os.listdir("."))}
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def partition_sets(subset):
+    """A SubsetPartition's partitions as a set of frozensets of tags."""
+    by_pid = {}
+    for tag, pid in subset.partition_map.items():
+        if pid is not None:
+            by_pid.setdefault(pid, set()).add(tag)
+    return {frozenset(t) for t in by_pid.values()}
+
+
+def device_engine(graph_base, dev, card):
+    """do_partition_device (the star edges' components by K10) and
+    do_partition (the host union) on the loaded phase-7 graph: their
+    partitions as sets must agree.  Returns the star edge list K10 was
+    given (n, src, dst) and the engine's numbers."""
+    from khmer_tpu_torch import Nodegraph, SubsetPartition, partition_device
+    from khmer_tpu_torch.kernels import CC_BLOCK
+
+    ng = Nodegraph.load(graph_base, device=dev)
+    ng.load_tagset(graph_base + ".tagset")
+    star = {}
+    components = partition_device.connected_components
+
+    def keep_edges(n, src, dst, *args, **kwargs):
+        star.update(n=n, src=src, dst=dst)
+        return components(n, src, dst, *args, **kwargs)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    with mock.patch.object(partition_device, "connected_components",
+                           keep_edges):
+        on_card = SubsetPartition(ng)
+        on_card.do_partition_device()
+    sync(dev)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = SubsetPartition(ng)
+    host.do_partition()
+    t_host = time.perf_counter() - t0
+    sets = partition_sets(host)
+    if partition_sets(on_card) != sets or \
+            on_card.count_partitions() != host.count_partitions():
+        fail("do_partition_device's partitions differ from do_partition's")
+    st = on_card.device_stats
+    info = dict(tags=st["tags"], edges=st["edges"],
+                cc_calls=st["calls"], cc_rounds=CC_BLOCK * st["calls"],
+                partitions=len(sets),
+                unassigned=host.count_partitions()[1],
+                do_partition_device_s=t_dev, do_partition_s=t_host)
+    log("phase 7 device engine: do_partition_device == do_partition as "
+        "sets of tags: {} [{}]".format(json.dumps(info), card))
+    return (star["n"], star["src"], star["dst"]), info
+
+
+def run_partition(card, dev, tmp, seed):
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    wd = os.path.join(tmp, "p7")
+    os.makedirs(wd)
+    fa = os.path.join(wd, "reads.fa")
+    t0 = time.perf_counter()
+    bases = make_metagenome(fa, seed, PARTITION_GENOMES, PARTITION_READS)
+    log("phase 7: {} reads of 100 bp over {} random genomes of 1-8 kbases "
+        "({} bases, {:.2f}x), 0.5% substitutions, half reverse-"
+        "complemented, {:.1f} s to write".format(
+            PARTITION_READS, PARTITION_GENOMES, bases,
+            PARTITION_READS * 100 / bases, time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = partition_scripts(os.path.join(wd, "kernels"), fa, dev, True,
+                            card)
+    star, info = device_engine(os.path.join(wd, "kernels", "g"), dev, card)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 7 launches: {}".format(json.dumps(launches)))
+    log("phase 7 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in PARTITION_PATH if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the partitioning path: {}".format(
+            missing))
+    for name, wall in got["walls"].items():
+        busy = got["busy"].get(name)
+        log("{}: {:.3f} s (profiled), {:.0f} reads/s, device busy {} "
+            "[{}]".format(name, wall, PARTITION_READS / wall,
+                          "not measured" if busy is None else
+                          "{:.3f} s = {:.1f}%".format(busy,
+                                                      100 * busy / wall),
+                          card))
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = partition_scripts(os.path.join(wd, "plain"), fa, dev, False,
+                                card)
+    log("phase 7 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    if got["files"] != ref["files"]:
+        bad = sorted("{}: {}".format(step, f)
+                     for step, files in got["files"].items()
+                     for f in set(files) | set(ref["files"][step])
+                     if files.get(f) != ref["files"][step].get(f))
+        fail("partitioning path differs from its plain run in " +
+             "; ".join(bad[:10]))
+    final = got["files"]["extract-partitions"]
+    subsets = sorted(f for f in got["files"]["partition-graph"]
+                     if f.startswith("g.subset."))
+    groups = [f for f in final if ".group" in f]
+    log("kernels == plain on the card: every file after every script "
+        "({} files at the end: {}; {} subset pmaps; {} group files); "
+        "sizes {}".format(len(final), ", ".join(sorted(final)),
+                          len(subsets), len(groups),
+                          json.dumps(got["sizes"])))
+    if len(subsets) < 2 or not groups:
+        fail("phase 7 made {} subset pmaps and {} group files".format(
+            len(subsets), len(groups)))
+    return launches, star, info
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: K10 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def cc_inputs(seed, dev, star, n=1 << 22, e=1 << 24):
+    """K10's three inputs as (T, int32 src, int32 dst) on the card: a
+    path of n nodes; a random graph of n nodes and e edges, an eighth of
+    them copies of others and an eighth padding (0, 0), shuffled; and
+    phase 7's star edge list (the tensors do_partition_device gave
+    connected_components)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 10)
+    path = torch.arange(n - 1, dtype=torch.int32, device=dev)
+    src = torch.randint(0, n, (e,), generator=g, device=dev,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=g, device=dev,
+                        dtype=torch.int32)
+    eighth = e // 8
+    pick = torch.randint(0, e - 2 * eighth, (eighth,), generator=g,
+                         device=dev)
+    src[e - 2 * eighth: e - eighth] = src[pick]
+    dst[e - 2 * eighth: e - eighth] = dst[pick]
+    src[e - eighth:] = 0
+    dst[e - eighth:] = 0
+    perm = torch.randperm(e, generator=g, device=dev)
+    T, s7, d7 = star
+    return {"path": (n, path, path + 1),
+            "random": (n, src[perm].contiguous(), dst[perm].contiguous()),
+            "phase-7 star": (T, s7.to(dev, torch.int32).contiguous(),
+                             d7.to(dev, torch.int32).contiguous())}
+
+
+def check_cc_kernel(seed, dev, rec, star):
+    """K10 against its plain version on the card, exactly: labels and the
+    changed flag from arange labels at rounds = 1 and CC_BLOCK (8), and
+    the labels at the fixpoint of connected_components (and its number of
+    calls); CUDA-event times a call at rounds = CC_BLOCK (the path's call)
+    and 1."""
+    import torch
+
+    from khmer_tpu_torch import kernels, partition_device
+    from khmer_tpu_torch.kernels import plain
+
+    block = kernels.CC_BLOCK
+
+    log("phase 3d: K10 on a 2**22-node path, a 2**22-node graph of 2**24 "
+        "random edges (an eighth repeated, an eighth padding) and phase "
+        "7's star edge list")
+    out = {}
+    for name, (T, src, dst) in cc_inputs(seed, dev, star).items():
+        lab = torch.arange(T, dtype=torch.int32, device=dev)
+        err = 0
+        for rounds in (1, block):
+            got = kernels.cc_rounds(lab, src, dst, rounds)
+            want = plain.cc_rounds(lab, src, dst, rounds)
+            err = max(err, max_abs_err(got[0], want[0]),
+                      int(bool(got[1]) != bool(want[1])))
+        fix = {}
+        for side, fn in (("kernel", kernels.cc_rounds),
+                         ("plain", plain.cc_rounds)):
+            stats = {}
+            with mock.patch.object(kernels, "cc_rounds", fn):
+                labels = partition_device.connected_components(
+                    T, src.cpu().numpy().view(np.uint32),
+                    dst.cpu().numpy().view(np.uint32), dev, stats=stats)
+            fix[side] = (labels, stats["calls"])
+        err = max(err, max_abs_err(fix["kernel"][0], fix["plain"][0]),
+                  int(fix["kernel"][1] != fix["plain"][1]))
+        E = src.numel()
+        r = dict(T=T, E=E, err=err, calls=fix["kernel"][1],
+                 components=int(torch.unique(fix["kernel"][0]).numel()),
+                 ms=cuda_ms(lambda: kernels.cc_rounds(lab, src, dst, block),
+                            10),
+                 ms_1=cuda_ms(lambda: kernels.cc_rounds(lab, src, dst, 1),
+                              10),
+                 plain_ms=cuda_ms(
+                     lambda: plain.cc_rounds(lab, src, dst, block), 3),
+                 bytes=8 * E + 8 * T)
+        log("K10 {}: T {} E {}; max_abs_err {}; {} calls of {} rounds to "
+            "the fixpoint, {} components; {:.4f} ms a call of {} rounds, "
+            "{:.4f} of 1; plain {:.4f}; bound {:.4f} ms ({} bytes)".format(
+                name, T, E, err, r["calls"], block, r["components"], r["ms"],
+                block,
+                r["ms_1"], r["plain_ms"], bound_ms(r["bytes"]),
+                r["bytes"]))
+        out[name] = r
+        del lab
+        gc.collect()
+    star_run = out["phase-7 star"]
+    record_kernel(
+        rec, "cc_rounds", max(r["err"] for r in out.values()),
+        star_run["ms"], star_run["plain_ms"], star_run["bytes"],
+        **{"{}_{}".format(name.replace(" ", "_").replace("-", ""), key):
+           r[key] for name, r in out.items()
+           for key in ("T", "E", "ms", "ms_1", "plain_ms", "calls")})
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1638,23 +2046,31 @@ def main():
         check_murmur_kernels(args.seed, dev, reads_fa, pairs_fa, rec)
         slice2 = run_slice2(card, dev, tmp, ct, pairs_fa, head_fa)
         murmur = run_murmur(card, dev, tmp, reads_fa, pairs_fa, uniq4)
+        partition, star, _ = run_partition(card, dev, tmp, args.seed)
+        check_cc_kernel(args.seed, dev, rec, star)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
-    # murmur path (phase 6), which also gives K5's murmur launches
+    # murmur path (phase 6), which also gives K5's murmur launches, K10 by
+    # the partitioning path (phase 7)
     launches.update({k: slice2[k] for k in SOURCES if k not in MAIN_PATH})
     launches.update({k: murmur[k] for k in ("murmur_hashes", "hll_update")})
+    launches["cc_rounds"] = partition["cc_rounds"]
     rec["row_counts"]["murmur_launches"] = murmur["row_counts_murmur"]
 
-    from khmer_tpu_torch.kernels import KERNELS_PER_CALL
+    from khmer_tpu_torch.kernels import (CC_BLOCK, CC_KERNELS_PER_ROUND,
+                                         KERNELS_PER_CALL)
 
     # launches counts kernels launched; ms is per wrapper call, which
-    # launches kernels_per_call kernels
+    # launches kernels_per_call kernels (for K10, a call of CC_BLOCK
+    # rounds, as connected_components makes it)
     kernels_line = []
     for name, (source, replaces) in SOURCES.items():
         kernels_line.append(dict(name=name, route="cuda", source=source,
                                  replaces=replaces,
                                  launches=launches[name],
-                                 kernels_per_call=KERNELS_PER_CALL[name],
+                                 kernels_per_call=KERNELS_PER_CALL[name]
+                                 if name != "cc_rounds" else
+                                 CC_KERNELS_PER_ROUND * CC_BLOCK,
                                  **rec[name]))
     print(card)
     print(json.dumps({"kernels": kernels_line}))

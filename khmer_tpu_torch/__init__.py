@@ -14,7 +14,10 @@ count-median (slice 2), each as ``khmer_tpu_torch.scripts.<name>.main``
 ``trim_on_abundance``, ``diginorm_batch``, ``trim_pass1_batch``, ...);
 the murmur hash family (slice 3a): Counttable and Nodetable (any k up to
 255, also behind ``-H murmur`` in the streaming filters), HLLCounter and
-the script unique-kmers.
+the script unique-kmers; tag-based partitioning (slice 4a): Hashgraph's
+tags, SubsetPartition (with the device engine do_partition_device) and
+the scripts load-graph, partition-graph, merge-partitions,
+annotate-partitions and extract-partitions.
 """
 
 from collections import namedtuple
@@ -22,7 +25,7 @@ from struct import unpack
 import sys
 
 from khmer_tpu_torch._version import __version__
-from khmer_tpu_torch.graph import Countgraph, Nodegraph
+from khmer_tpu_torch.graph import Countgraph, Hashgraph, Nodegraph
 from khmer_tpu_torch.hashtable import Counttable, Nodetable
 from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxReader, Read
@@ -31,11 +34,12 @@ from khmer_tpu_torch.ops.hashing import (
     hash_murmur3_scalar as hash_murmur3,
     hash_no_rc_murmur3_scalar as hash_no_rc_murmur3,
 )
+from khmer_tpu_torch.partitioning import SubsetPartition
 
 __all__ = ["Countgraph", "Counttable", "FastxReader", "HLLCounter",
-           "Nodegraph", "Nodetable", "Read", "ReadParser", "__version__",
-           "calc_expected_collisions", "extract_countgraph_info",
-           "hash_murmur3", "hash_no_rc_murmur3"]
+           "Hashgraph", "Nodegraph", "Nodetable", "Read", "ReadParser",
+           "SubsetPartition", "__version__", "calc_expected_collisions",
+           "extract_countgraph_info", "hash_murmur3", "hash_no_rc_murmur3"]
 
 # khmer's name for its read parser (khmer_tpu/__init__.py:60)
 ReadParser = FastxReader

@@ -13,6 +13,7 @@ import torch
 MAX_KCOUNT = 255
 MAX_BIGCOUNT = 65535
 KSIZE_MAX = 32  # for the exact 2-bit hash
+DEFAULT_TAG_DENSITY = 40  # reference hashgraph.hh:63
 
 BIN_DTYPE = torch.int32  # uint32 bin totals, as bit patterns
 

@@ -2,8 +2,9 @@
 
 A khmer_tpu table (``np.asarray(cg.storage.table)``, a uint32 array of
 sum(tablesizes) + 1 bins) together with its counters becomes a port
-table that answers every query the same way; khmer_tpu's HLL registers
-(``np.asarray(h._counters)[:-1]``) become a port HLLCounter.
+table that answers every query the same way, a graph with its tags and
+stop tags too; khmer_tpu's HLL registers (``np.asarray(h._counters)
+[:-1]``) become a port HLLCounter.
 """
 
 import numpy as np
@@ -54,7 +55,20 @@ def table_from_numpy(cls, ksize, tablesizes, bins_u32, n_unique=0,
                                    bigcounts, device)
     if t.storage.kind == "byte":
         t.set_use_bigcount(use_bigcount)
+    t._post_load()
     return t
+
+
+def graph_from_numpy(cls, ksize, sizes, bins, tags=(), stop_tags=(),
+                     tag_density=40, device=None):
+    """A Countgraph or Nodegraph (`cls`) over khmer_tpu's uint32 bins with
+    its tags, stop tags and tag density (``g.all_tags``, ``g.stop_tags``,
+    ``g.tag_density``), so that both packages partition one state."""
+    g = table_from_numpy(cls, ksize, sizes, bins, device=device)
+    g.all_tags = set(int(t) for t in tags)
+    g.stop_tags = set(int(t) for t in stop_tags)
+    g._tag_density = int(tag_density)
+    return g
 
 
 def hll_from_numpy(counters_u8, ksize, device=None):

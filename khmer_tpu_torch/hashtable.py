@@ -865,7 +865,12 @@ class Hashtable:
         obj = cls.__new__(cls)
         obj._ksize = ksize
         obj.storage = store
+        obj._post_load()
         return obj
+
+    def _post_load(self):
+        """Set what a subclass keeps beside the table, for a table made
+        without __init__ (a load, convert.table_from_numpy)."""
 
 
 def _median_avg_std(counts):

@@ -11,6 +11,14 @@ Countgraph (SAVED_COUNTING_HT=1):
 Nodegraph (SAVED_HASHBITS=2):
   "OXLI" | u8 version=4 | u8 type | u32 ksize | u8 n_tables |
   u64 occupied | per table: u64 size_bits + (size//8+1) bytes
+
+Tagset / stoptags (SAVED_TAGS=3 / SAVED_STOPTAGS=4; khmer_tpu/io/
+oxli_format.py:285-318):
+  "OXLI" | u8 version=4 | u8 type | u32 ksize | u64 n | (tagset only:
+  u32 tag_density) | n * u64 hashes, sorted
+
+The subset partition map (SAVED_SUBSET=5) is written by
+partitioning.SubsetPartition.save_partitionmap.
 """
 
 import gzip
@@ -18,17 +26,22 @@ import struct
 
 import numpy as np
 
+from khmer_tpu_torch._config import DEFAULT_TAG_DENSITY
+
 SAVED_SIGNATURE = b"OXLI"
 SAVED_FORMAT_VERSION = 4
 SAVED_COUNTING_HT = 1
 SAVED_HASHBITS = 2
+SAVED_TAGS = 3
+SAVED_STOPTAGS = 4
+SAVED_SUBSET = 5
 
 FILETYPES = {
     "COUNTING_HT": SAVED_COUNTING_HT,
     "HASHBITS": SAVED_HASHBITS,
-    "TAGS": 3,
-    "STOPTAGS": 4,
-    "SUBSET": 5,
+    "TAGS": SAVED_TAGS,
+    "STOPTAGS": SAVED_STOPTAGS,
+    "SUBSET": SAVED_SUBSET,
     "LABELSET": 6,
     "SMALLCOUNT": 7,
     "QFCOUNT": 8,
@@ -156,3 +169,53 @@ def _load_storage(filename, expected_kind, device):
                     h, c = struct.unpack_from("<QH", data, 10 * i)
                     store.bigcounts[h] = c
     return store, ksize
+
+
+def _check_header(f, filename, expected_type, kind):
+    sig = _read_exact(f, 4, filename)
+    if sig != SAVED_SIGNATURE:
+        raise OxliFileError(
+            "Does not start with signature for a oxli file: {!r} "
+            "Should be: OXLI".format(sig))
+    (version,) = struct.unpack("B", _read_exact(f, 1, filename))
+    (ht_type,) = struct.unpack("B", _read_exact(f, 1, filename))
+    if version != SAVED_FORMAT_VERSION:
+        raise OxliFileError(
+            "Incorrect file format version {} while reading {} file from "
+            "{}; should be {}".format(version, kind, filename,
+                                      SAVED_FORMAT_VERSION))
+    if ht_type != expected_type:
+        raise OxliFileError(
+            "Incorrect file format type {} while reading {} file from "
+            "{}".format(ht_type, kind, filename))
+
+
+def save_hashset(filename, ksize, hashes, ht_type=SAVED_TAGS,
+                 tag_density=None):
+    """Save a tagset (with its tag density) or stoptags file; the hashes
+    sorted, as the reference's ordered SeenSet writes them
+    (hashgraph.cc:257-290, 1371-1396)."""
+    hashes = np.sort(np.fromiter((int(h) for h in hashes), np.uint64,
+                                 len(hashes)))
+    with _open_out(filename) as f:
+        f.write(SAVED_SIGNATURE)
+        f.write(struct.pack("BB", SAVED_FORMAT_VERSION, ht_type))
+        f.write(struct.pack("<IQ", int(ksize), hashes.size))
+        if ht_type == SAVED_TAGS:
+            f.write(struct.pack("<I", int(DEFAULT_TAG_DENSITY
+                                          if tag_density is None
+                                          else tag_density)))
+        f.write(hashes.astype("<u8").tobytes())
+
+
+def load_hashset(filename, ht_type=SAVED_TAGS):
+    """Load a tagset or stoptags file: (ksize, uint64 hashes, the tag
+    density, None for stoptags)."""
+    with _open_in(filename) as f:
+        _check_header(f, filename, ht_type, "tagset")
+        ksize, n = struct.unpack("<IQ", _read_exact(f, 12, filename))
+        density = None
+        if ht_type == SAVED_TAGS:
+            (density,) = struct.unpack("<I", _read_exact(f, 4, filename))
+        hashes = np.frombuffer(_read_exact(f, 8 * n, filename), "<u8")
+    return ksize, hashes.astype(np.uint64), density

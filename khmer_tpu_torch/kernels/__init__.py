@@ -3,9 +3,9 @@
 For a CUDA tensor a wrapper launches its hand-written kernel (csrc/,
 built at first use by _build) on the current stream and adds the
 number of kernels it launched to LAUNCHES[name] (KERNELS_PER_CALL: ten
-for sketch_update, one for the others); for a CPU tensor it calls the
-plain PyTorch version in plain.py.  A failed build or launch raises;
-nothing falls back.
+for sketch_update, four a round for cc_rounds, one for the others); for
+a CPU tensor it calls the plain PyTorch version in plain.py.  A failed
+build or launch raises; nothing falls back.
 
 Tensor conventions: hashes are int64 bit patterns of uint64 (murmur
 hashes use all 64 bits); sketch tables are int32 bit patterns of uint32
@@ -23,15 +23,18 @@ from khmer_tpu_torch.kernels import _build, plain
 
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
-           "trim_chain", "murmur_hashes", "hll_update")
+           "trim_chain", "murmur_hashes", "hll_update", "cc_rounds")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # row_counts' launches by hash kind (its 2-bit and murmur variants)
 ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0}
 MURMUR_MAX_K = 255  # csrc/murmur.cuh kMaxK
 # sketch_update is the partitioned update of csrc/sketch.cu: count,
 # bucket scan, bucket, partition count, two scan launches, place, apply,
-# hot and finish
+# hot and finish; cc_rounds launches CC_KERNELS_PER_ROUND a round
 KERNELS_PER_CALL = dict(dict.fromkeys(KERNELS, 1), sketch_update=10)
+CC_KERNELS_PER_ROUND = 4  # csrc/cc.cu: two relaxes, two pointer jumps
+CC_BLOCK = 8  # rounds a call of connected_components (khmer_tpu's block)
+MAX_CC = (1 << 31) - 1  # nodes and edges: K10 indexes labels as int32
 MAX_TABLES = 32               # khmer's -N; tested at 1, 3, 4 and 32
 MAX_RECORDS = (1 << 31) - 1   # records (lanes x tables) carry int32 offsets
 MAX_BINS = 1 << 33            # K2's bucket pass keeps a counter per bucket
@@ -89,14 +92,14 @@ def _partition_work(n_records, nbins, dev):
             torch.zeros(_META_WORDS, dtype=torch.int32, device=dev))
 
 
-def _launch(name, *args, entry=None):
+def _launch(name, *args, entry=None, count=None):
     stream = torch.cuda.current_stream().cuda_stream
     err = _build.function(entry or "khmer_" + name)(*args,
                                                     ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("{} launch failed with CUDA error {}".format(
             name, err))
-    LAUNCHES[name] += KERNELS_PER_CALL[name]
+    LAUNCHES[name] += KERNELS_PER_CALL[name] if count is None else count
 
 
 def hash2bit_canonical(codes, mask, k):
@@ -408,3 +411,44 @@ def trim_chain(ids, valid, real, pre, trim_at, dn_cov, cutoff):
                 first_bad.data_ptr(), scratch.data_ptr(), pre.numel())
     _keep_rounds("trim_chain", scratch)
     return branch, first_bad, tally
+
+
+def check_cc_sizes(n_nodes, n_edges):
+    """Raise ValueError unless K10 can index n_nodes labels and n_edges
+    edges (each below 2**31: labels are int32 bit patterns)."""
+    if not 0 <= n_nodes <= MAX_CC or not 0 <= n_edges <= MAX_CC:
+        raise ValueError("cc_rounds: {} nodes and {} edges; each must be "
+                         "below 2**31".format(n_nodes, n_edges))
+
+
+def cc_rounds(labels, src, dst, rounds=8):
+    """K10: `rounds` rounds of min-label propagation with pointer jumping
+    over int32 labels [T] (uint32 bit patterns, normally node indices)
+    and edges src, dst int32 [E] (padding edges (0, 0) relax nothing),
+    as khmer_tpu/partition_device.py:cc_rounds computes them: each round
+    relaxes every edge towards dst from the round's labels, then towards
+    src from that result, then jumps m = m[m] twice.  Returns (new int32
+    labels [T], in a new tensor; a bool tensor on the device: some
+    round changed a label), without synchronising.  See csrc/cc.cu."""
+    dev = labels.device
+    for name, t in (("labels", labels), ("src", src), ("dst", dst)):
+        _check(name, t, torch.int32, dev)
+        if t.dim() != 1:
+            raise ValueError("cc_rounds: {} must be 1-D".format(name))
+    if src.shape != dst.shape or rounds < 1:
+        raise ValueError("cc_rounds: need src and dst of one length and "
+                         "rounds >= 1")
+    T, E = labels.numel(), src.numel()
+    check_cc_sizes(T, E)
+    if T == 0:
+        return labels.clone(), torch.zeros((), dtype=torch.bool,
+                                           device=dev)
+    if dev.type != "cuda":
+        return plain.cc_rounds(labels, src, dst, rounds)
+    out = torch.empty_like(labels)
+    scratch = torch.empty(2 * T, dtype=torch.int32, device=dev)
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("cc_rounds", labels.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            T, E, rounds, out.data_ptr(), scratch.data_ptr(),
+            changed.data_ptr(), count=CC_KERNELS_PER_ROUND * rounds)
+    return out, changed[0] != 0

@@ -301,3 +301,29 @@ def trim_chain(ids, valid, real, pre, trim_at, dn_cov, cutoff):
     return (torch.from_numpy(branch).to(dev),
             torch.from_numpy(first_bad).to(dev),
             torch.from_numpy(tally.astype(np.uint32).view(np.int32)).to(dev))
+
+
+def cc_rounds(labels, src, dst, rounds):
+    """`rounds` Jacobi rounds of min-label propagation with pointer
+    jumping (khmer_tpu/partition_device.py:42-65) over int32 labels [T]
+    and edges src, dst [E] (uint32 bit patterns): each round
+    m = lab.at[dst].min(lab[src]); m = m.at[src].min(m[dst]); m = m[m];
+    m = m[m].  As in JAX, a gather clamps its index into [0, T) and a
+    scatter drops a target outside it.  Returns (int32 labels [T], a bool
+    tensor: some round's output differs from its input)."""
+    T = labels.numel()
+    lab = _u64.u32(labels)
+    s, d = _u64.u32(src), _u64.u32(dst)
+    s_in, d_in = s < T, d < T
+    s_at, d_at = s.clamp(max=T - 1), d.clamp(max=T - 1)
+    changed = torch.zeros((), dtype=torch.bool, device=labels.device)
+    for _ in range(rounds):
+        m = lab.clone()
+        m.scatter_reduce_(0, d[d_in], lab[s_at][d_in], "amin")
+        m2 = m.clone()
+        m2.scatter_reduce_(0, s[s_in], m[d_at][s_in], "amin")
+        m2 = m2[m2.clamp(max=T - 1)]
+        m2 = m2[m2.clamp(max=T - 1)]
+        changed |= (m2 != lab).any()
+        lab = m2
+    return lab.to(torch.int32), changed

@@ -374,6 +374,13 @@ def build_counting_args(descr=None, epilog=None, citations=None):
     return parser
 
 
+def build_nodegraph_args(descr=None, epilog=None, parser=None,
+                         citations=None):
+    """Shared args for nodegraph-based scripts (khmer_args.py:399-402)."""
+    return build_graph_args(descr=descr, epilog=epilog, parser=parser,
+                            citations=citations)
+
+
 def add_loadgraph_args(parser):
     parser.add_argument('-l', '--loadgraph', metavar="filename", default=None,
                         help='load a precomputed k-mer graph from disk')
@@ -402,6 +409,21 @@ def _check_n_tables(args):
             else:
                 log_warn("\n*** Warning: Maximum recommended number of "
                          "tables is 20, discarded by force nonetheless!\n")
+
+
+def create_nodegraph(args, ksize=None, multiplier=1.0, fp_rate=0.01,
+                     device=None):
+    """Create a Nodegraph per the CLI args on `device`
+    (khmer_args.py:436-447)."""
+    args = _check_fp_rate(args, fp_rate)
+    _check_n_tables(args)
+    if ksize is None:
+        ksize = args.ksize
+    if ksize > 32:
+        print_error("\n** ERROR: khmer only supports k-mer sizes <= 32.\n")
+        sys.exit(1)
+    tablesize = calculate_graphsize(args, 'nodegraph', multiplier)
+    return khmer.Nodegraph(ksize, tablesize, args.n_tables, device=device)
 
 
 def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,

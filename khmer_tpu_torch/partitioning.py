@@ -1,0 +1,585 @@
+"""Tag-graph partitioning: SubsetPartition (reference src/oxli/subset.cc).
+
+Port of khmer_tpu/partitioning.py:39-645, without sweep_for_tags,
+find_unpart and repartition_largest_partition, which come with a later
+slice of the port.  Partitions are connected components of the sparse
+tag graph: two tags connect when a breadth-limited search (max breadth
+2 * tag_density + 1, subset.cc:349) in k-mer space reaches one from the
+other.  Every search level of a batch of seed tags is one count probe
+of all its candidate neighbours (traversal._expand through
+Storage.get_lanes, kernel K3 on the card); the host keeps each seed's
+visited set and the union of partition ids.  do_partition_device takes
+the same searches' star edges to kernel K10
+(partition_device.connected_components) instead.
+
+Parity notes (as khmer_tpu):
+  * partition ids start at 2 (subset.cc:85) and the first partition id
+    found among the tagged set wins a merge (subset.cc:798-845);
+  * with stop_big_traversals a seed's search is dropped once it has
+    visited more than BIG_TRAVERSALS_ARE = 200 k-mers, checked at the
+    start of each level (khmer_tpu's documented level granularity);
+  * pmap files are byte-compatible (subset.cc:1158-1229): a record of
+    (uint64 tag, uint32 partition id) for every assigned tag, with the
+    header count covering the map's null entries.
+"""
+
+import struct
+
+import numpy as np
+import torch
+
+from khmer_tpu_torch import _u64
+from khmer_tpu_torch.io.oxli_format import (OxliFileError,
+                                            SAVED_FORMAT_VERSION,
+                                            SAVED_SIGNATURE, SAVED_SUBSET)
+from khmer_tpu_torch.traversal import _expand, fr_from_hashes
+
+BIG_TRAVERSALS_ARE = 200  # reference subset.cc:54
+SEED_BATCH = 1 << 17  # seed tags searched together (any batch: the same)
+ANNOTATE_BATCH = 16384  # reads hashed together by output_partitioned_file
+
+
+class PrePartitionInfo:
+    """Result of find_all_tags for one seed (legacy_partitioning.pyx:8)."""
+
+    __slots__ = ("kmer", "tagged_kmers")
+
+    def __init__(self, kmer, tagged_kmers):
+        self.kmer = kmer
+        self.tagged_kmers = tagged_kmers
+
+
+def _member(sorted_keys, vals):
+    """Which int64 hash patterns `vals` are among the hashes whose
+    ascending sort keys (_u64.sort_key) are `sorted_keys`."""
+    if not sorted_keys.numel():
+        return torch.zeros(vals.numel(), dtype=torch.bool,
+                           device=vals.device)
+    key = _u64.sort_key(vals)
+    pos = torch.searchsorted(sorted_keys, key).clamp(
+        max=sorted_keys.numel() - 1)
+    return sorted_keys[pos] == key
+
+
+def _sorted_u64(values):
+    arr = np.fromiter((int(t) for t in values), np.uint64, len(values))
+    arr.sort()
+    return arr
+
+
+class SubsetPartition:
+    def __init__(self, graph):
+        self.graph = graph
+        self.partition_map = {}  # tag hash -> partition id (or None)
+        self.next_partition_id = 2  # reference subset.cc:85
+        self._rev = {}  # pid -> set of tags
+        self._tags_cache = self._stops_cache = self._tag_keys_cache = None
+        # do_partition_device's last run: tags, edges, cc_rounds calls
+        self.device_stats = {}
+
+    # -- the bounded searches ----------------------------------------------
+
+    def find_all_tags(self, start_kmer, break_on_stop_tags=False,
+                      stop_big_traversals=False):
+        """Tags reachable from one seed (subset.cc:335-427)."""
+        return self.find_all_tags_batch([start_kmer], break_on_stop_tags,
+                                        stop_big_traversals)[0]
+
+    def find_all_tags_batch(self, seeds, break_on_stop_tags=False,
+                            stop_big_traversals=False):
+        """Per-seed PrePartitionInfo (the set of tags reached) for a batch
+        of seed hashes."""
+        sid, canon = self._tags_reached(seeds, break_on_stop_tags,
+                                        stop_big_traversals)
+        out_sets = [set() for _ in seeds]
+        for s, c in zip(sid.tolist(), _u64.to_numpy(canon).tolist()):
+            out_sets[s].add(c)
+        return [PrePartitionInfo(int(s), t) for s, t in zip(seeds, out_sets)]
+
+    def _tags_reached(self, seeds, break_on_stop_tags=False,
+                      stop_big_traversals=False):
+        """The bounded searches of khmer_tpu's find_all_tags_batch from
+        every seed of a batch at once, on the graph's device: (seed
+        index, tag) pairs as int64 tensors (the tag a uint64 bit
+        pattern), one pair for each tag a seed's search reaches.
+
+        Level by level, the frontier's candidate neighbours are probed in
+        one count query; each candidate (seed, k-mer) pair that its seed
+        has not visited is visited, a tag among them (from level 1 on) is
+        recorded and not expanded, and the rest are expanded, until
+        max_breadth levels.  A pair can only be met again if it was
+        visited at one of the two levels before, or is a tag (which is
+        never expanded): an expanded k-mer has every neighbour probed at
+        the next level, so a neighbour of one visited two or more levels
+        earlier was visited by then.  So each seed's visited set is kept
+        as those two levels plus its tags, and is exact.  Which frontier
+        lane stands for a pair does not matter: a k-mer and its reverse
+        complement have the same canonical neighbours."""
+        graph = self.graph
+        dev = graph.device
+        k = graph.ksize()
+        max_breadth = 2 * graph.tag_density + 1
+        n = len(seeds)
+        tag_keys = self._tag_keys()
+        stop_keys = self._keys(self._sorted_stops_cache()) \
+            if break_on_stop_tags else None
+        visited_total = torch.zeros(n, dtype=torch.int64, device=dev)
+        aborted = torch.zeros(n, dtype=torch.bool, device=dev)
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        # the pairs visited at the last two levels, and every tag pair
+        levels = [(empty, empty), (empty, empty)]
+        tag_s, tag_c = [empty], [empty]
+        cf, cr = (_u64.as_tensor(x, dev) for x in fr_from_hashes(
+            np.asarray([int(h) for h in seeds], np.uint64), k))
+        sid = torch.arange(n, dtype=torch.int64, device=dev)
+        breadth = 0
+        while cf.numel():
+            if stop_big_traversals:
+                aborted |= visited_total > BIG_TRAVERSALS_ARE
+                live = ~aborted[sid]
+                cf, cr, sid = cf[live], cr[live], sid[live]
+                if not cf.numel():
+                    break
+            canon = _u64.umin(cf, cr)
+            if break_on_stop_tags:
+                lanes = torch.nonzero(~_member(stop_keys, canon)).squeeze(1)
+                if not lanes.numel():
+                    break
+            else:
+                lanes = torch.arange(canon.numel(), device=dev)
+            # the candidates' distinct (seed, k-mer) pairs that are not
+            # among the pairs of the last two levels: a stable sort puts
+            # an old pair before its candidates
+            n_old = levels[0][0].numel() + levels[1][0].numel()
+            all_s = torch.cat([levels[0][0], levels[1][0], sid[lanes]])
+            all_c = torch.cat([levels[0][1], levels[1][1], canon[lanes]])
+            order, first = _pair_runs(all_s, all_c)
+            pick = order[first & (order >= n_old)]
+            u_sid, u_canon = all_s[pick], all_c[pick]
+            rep = lanes[pick - n_old]
+            tag_mask = _member(tag_keys, u_canon) if breadth > 0 else \
+                torch.zeros(u_sid.numel(), dtype=torch.bool, device=dev)
+            if breadth > 0:
+                # a tag met at an older level is not fresh
+                tags = torch.nonzero(tag_mask).squeeze(1)
+                seen = _pairs_in(u_sid[tags], u_canon[tags],
+                                 torch.cat(tag_s), torch.cat(tag_c))
+                keep = torch.ones(u_sid.numel(), dtype=torch.bool,
+                                  device=dev)
+                keep[tags[seen]] = False
+                u_sid, u_canon = u_sid[keep], u_canon[keep]
+                rep, tag_mask = rep[keep], tag_mask[keep]
+                tag_s.append(u_sid[tag_mask])
+                tag_c.append(u_canon[tag_mask])
+            if not u_sid.numel():
+                break
+            visited_total += torch.bincount(u_sid, minlength=n)
+            levels = [levels[1], (u_sid, u_canon)]
+            if breadth >= max_breadth:
+                break
+            rep = rep[~tag_mask]
+            if not rep.numel():
+                break
+            idx = torch.sort(rep).values
+            cf, cr, _, src = _expand(graph, cf[idx], cr[idx], k)
+            sid = sid[idx][src]
+            breadth += 1
+        sid, canon = torch.cat(tag_s), torch.cat(tag_c)
+        if stop_big_traversals:
+            keep = ~aborted[sid]
+            sid, canon = sid[keep], canon[keep]
+        return sid, canon
+
+    def _sorted_tags_cache(self):
+        """graph.all_tags as a sorted uint64 array, rebuilt only when the
+        tag set changes."""
+        tags = self.graph.all_tags
+        key = (id(tags), len(tags))
+        if self._tags_cache is None or self._tags_cache[0] != key:
+            self._tags_cache = (key, _sorted_u64(tags))
+            self._tag_keys_cache = None
+        return self._tags_cache[1]
+
+    def _tag_keys(self):
+        """The sorted tags as ascending sort keys on the graph's device."""
+        tags = self._sorted_tags_cache()
+        if self._tag_keys_cache is None:
+            self._tag_keys_cache = self._keys(tags)
+        return self._tag_keys_cache
+
+    def _keys(self, sorted_u64):
+        """Ascending sort keys (_u64.sort_key) of a sorted uint64 array, on
+        the graph's device."""
+        return _u64.sort_key(_u64.as_tensor(sorted_u64, self.graph.device))
+
+    def _sorted_stops_cache(self):
+        stops = self.graph.stop_tags
+        key = (id(stops), len(stops))
+        if self._stops_cache is None or self._stops_cache[0] != key:
+            self._stops_cache = (key, _sorted_u64(stops))
+        return self._stops_cache[1]
+
+    # -- partition id bookkeeping ----------------------------------------
+
+    def _new_pid(self):
+        pid = self.next_partition_id
+        self.next_partition_id += 1
+        self._rev[pid] = set()
+        return pid
+
+    def _rewrite(self, winner, loser):
+        """Merge partition `loser` into `winner`
+        (subset.cc:_merge_two_partitions; the reference relabels the
+        smaller pointer set -- ids are preserved per its choice)."""
+        if winner == loser:
+            return winner
+        sw = self._rev.get(winner, set())
+        sl = self._rev.get(loser, set())
+        if len(sw) < len(sl):
+            winner, loser = loser, winner
+            sw, sl = sl, sw
+        for tag in sl:
+            self.partition_map[tag] = winner
+        sw.update(sl)
+        self._rev[winner] = sw
+        self._rev.pop(loser, None)
+        return winner
+
+    def assign_partition_id(self, kmer, tagged_kmers=None):
+        """Assign/merge partition for a seed tag and its tagged set
+        (subset.cc:774-845)."""
+        if isinstance(kmer, PrePartitionInfo):
+            tagged_kmers = kmer.tagged_kmers
+            kmer = kmer.kmer
+        kmer = int(kmer)
+        tagged_kmers = set(int(t) for t in (tagged_kmers or ()))
+        if not tagged_kmers:
+            self.partition_map.pop(kmer, None)
+            return 0
+        # first assigned id among the tagged set wins
+        this_pid = None
+        for t in sorted(tagged_kmers):
+            pid = self.partition_map.get(t)
+            if pid is not None:
+                this_pid = pid
+                break
+        if this_pid is None:
+            this_pid = self._new_pid()
+        for t in tagged_kmers:
+            pid = self.partition_map.get(t)
+            if pid is None:
+                self.partition_map[t] = this_pid
+                self._rev[this_pid].add(t)
+            elif pid != this_pid:
+                this_pid = self._rewrite(this_pid, pid)
+        self.partition_map[kmer] = this_pid
+        self._rev[this_pid].add(kmer)
+        return this_pid
+
+    def set_partition_id(self, kmer, pid):
+        kmer = int(kmer) if not isinstance(kmer, str) else \
+            self.graph.hash(kmer)
+        pid = int(pid)
+        if pid not in self._rev:
+            self._rev[pid] = set()
+        old = self.partition_map.get(kmer)
+        if old is not None and old in self._rev:
+            self._rev[old].discard(kmer)
+        self.partition_map[kmer] = pid
+        self._rev[pid].add(kmer)
+        if self.next_partition_id <= pid:
+            self.next_partition_id = pid + 1
+
+    def join_partitions(self, p1, p2):
+        """(subset.cc:890-915)"""
+        if p1 == p2:
+            return p1
+        if p1 == 0 or p2 == 0:
+            return 0
+        if p1 not in self._rev or p2 not in self._rev:
+            return 0
+        self._rewrite(p1, p2)
+        return p1
+
+    def get_partition_id(self, kmer):
+        if isinstance(kmer, str):
+            kmer = self.graph.hash(kmer)
+        pid = self.partition_map.get(int(kmer))
+        return 0 if pid is None else pid
+
+    # -- driving ----------------------------------------------------------
+
+    def _span(self, first_kmer, last_kmer):
+        """The sorted tags in [first_kmer, last_kmer) (0: either end);
+        a bound that is not a tag raises ValueError."""
+        tags = self._sorted_tags_cache()
+
+        def index(kmer):
+            i = int(np.searchsorted(tags, np.uint64(kmer)))
+            if i == tags.size or int(tags[i]) != int(kmer):
+                raise ValueError("{} is not a tag".format(kmer))
+            return i
+
+        lo = index(first_kmer) if first_kmer else 0
+        hi = index(last_kmer) if last_kmer else tags.size
+        return tags[lo:hi]
+
+    def do_partition(self, first_kmer=0, last_kmer=0,
+                     break_on_stop_tags=False, stop_big_traversals=False):
+        """Partition tags in [first_kmer, last_kmer) of the sorted tag
+        set (subset.cc:623-675), SEED_BATCH seeds searched at a time; the
+        seeds' partition ids are assigned in seed order, so the batch
+        changes nothing."""
+        span = self._span(first_kmer, last_kmer)
+        for i in range(0, span.size, SEED_BATCH):
+            for ppi in self.find_all_tags_batch(
+                    span[i: i + SEED_BATCH].tolist(), break_on_stop_tags,
+                    stop_big_traversals):
+                self.assign_partition_id(ppi.kmer, ppi.tagged_kmers)
+
+    def do_partition_device(self, break_on_stop_tags=False,
+                            stop_big_traversals=False, mesh=None):
+        """The device engine (khmer_tpu/partitioning.py:350-413): the
+        searches give a star edge list (each seed tag to every tag its
+        search reaches), and kernel K10 labels the connected components
+        on the card (partition_device.connected_components) instead of
+        the host union.  The same partitions AS SETS OF TAGS as
+        do_partition; ids are assigned in first-seed order, so pmap BYTE
+        parity stays with do_partition."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "do_partition_device(mesh=...) is not ported yet (slice 7 "
+                "of the port)")
+        from khmer_tpu_torch.partition_device import connected_components
+
+        tags = self._sorted_tags_cache()
+        tag_keys = self._tag_keys()
+        n = tags.size
+        src, dst = [], []
+        for i in range(0, n, SEED_BATCH):
+            sid, canon = self._tags_reached(tags[i: i + SEED_BATCH].tolist(),
+                                            break_on_stop_tags,
+                                            stop_big_traversals)
+            src.append(sid + i)
+            dst.append(torch.searchsorted(tag_keys, _u64.sort_key(canon)))
+        dev = self.graph.device
+        src = torch.cat(src or [torch.zeros(0, dtype=torch.int64,
+                                            device=dev)])
+        dst = torch.cat(dst or [torch.zeros(0, dtype=torch.int64,
+                                            device=dev)])
+        seeded = torch.zeros(n, dtype=torch.bool, device=dev)
+        seeded[src] = True
+        seeded[dst] = True
+        seeded = seeded.cpu().numpy()
+        stats = {"tags": int(n), "edges": int(src.numel()), "calls": 0}
+        if src.numel():
+            labels = connected_components(
+                n, src.to(torch.int32), dst.to(torch.int32), dev,
+                stats=stats).cpu().numpy().view(np.uint32)
+        else:
+            labels = np.arange(n, dtype=np.uint32)
+        self.device_stats = stats
+        # label -> partition id in first-seed order (the reference
+        # assigns fresh ids as seeds are processed, subset.cc:85);
+        # unseeded tags stay absent, as with do_partition
+        idx = np.nonzero(seeded)[0]
+        roots, first, inverse = np.unique(labels[idx], return_index=True,
+                                          return_inverse=True)
+        rank = np.empty(roots.size, np.int64)
+        rank[np.argsort(first, kind="stable")] = np.arange(roots.size)
+        pids = self.next_partition_id + rank[inverse]
+        for pid in range(self.next_partition_id,
+                         self.next_partition_id + roots.size):
+            self._rev[pid] = set()
+        self.next_partition_id += roots.size
+        for tag, pid in zip(tags[idx].tolist(), pids.tolist()):
+            self.partition_map[tag] = pid
+            self._rev[pid].add(tag)
+
+    # -- stats ------------------------------------------------------------
+
+    def count_partitions(self):
+        """(n_partitions, n_unassigned) over the graph's tags
+        (subset.cc count_partitions; the reference's operator[] inserts
+        null entries for unseen tags -- size parity kept)."""
+        parts = set()
+        n_unassigned = 0
+        for tag in self.graph.all_tags:
+            pid = self.partition_map.setdefault(int(tag), None)
+            if pid is not None:
+                parts.add(pid)
+            else:
+                n_unassigned += 1
+        return len(parts), n_unassigned
+
+    def partition_sizes(self, min_size=0):
+        cm = {}
+        n_unassigned = 0
+        for tag in self.graph.all_tags:
+            pid = self.partition_map.get(int(tag))
+            if pid is not None:
+                cm[pid] = cm.get(pid, 0) + 1
+            else:
+                n_unassigned += 1
+        sizes = [(p, s) for p, s in sorted(cm.items()) if s >= min_size]
+        return sizes, n_unassigned
+
+    # -- persistence (byte parity: subset.cc:1158-1229) -------------------
+
+    def save_partitionmap(self, filename):
+        tags = _sorted_u64(self.partition_map)
+        pids = [self.partition_map[t] for t in tags.tolist()]
+        assigned = np.array([p is not None for p in pids], bool)
+        rec = np.empty(int(assigned.sum()), np.dtype([("t", "<u8"),
+                                                      ("p", "<u4")]))
+        rec["t"] = tags[assigned]
+        rec["p"] = [p for p in pids if p is not None]
+        with open(filename, "wb") as f:
+            f.write(SAVED_SIGNATURE)
+            f.write(struct.pack("BB", SAVED_FORMAT_VERSION, SAVED_SUBSET))
+            f.write(struct.pack("<I", self.graph.ksize()))
+            f.write(struct.pack("<Q", len(self.partition_map)))
+            f.write(rec.tobytes())
+
+    def load_partitionmap(self, filename):
+        self.merge_from_disk(filename)
+
+    def merge_from_disk(self, filename):
+        """Merge a pmap file: equal disk ids unify tags locally
+        (subset.cc:1006-1157)."""
+        with open(filename, "rb") as f:
+            data = f.read()
+        if len(data) == 18:
+            raise OxliFileError(
+                filename + " contains only a header and no partition IDs.")
+        if len(data) < 18:
+            raise OxliFileError(
+                "truncated subset pmap header in " + filename)
+        if data[:4] != SAVED_SIGNATURE:
+            raise OxliFileError(
+                "Incorrect file signature while reading subset pmap from "
+                + filename)
+        version, ht_type = data[4], data[5]
+        if version != SAVED_FORMAT_VERSION:
+            raise OxliFileError(
+                "Incorrect file format version {} while reading subset "
+                "pmap from {}".format(version, filename))
+        if ht_type != SAVED_SUBSET:
+            raise OxliFileError(
+                "Incorrect file format type {} while reading subset "
+                "pmap from {}".format(ht_type, filename))
+        (ksize,) = struct.unpack_from("<I", data, 6)
+        if ksize != self.graph.ksize():
+            raise OxliFileError(
+                "Incorrect k-mer size {} while reading subset pmap "
+                "from {}".format(ksize, filename))
+        (expected_pmap_size,) = struct.unpack_from("<Q", data, 10)
+        if (len(data) - 18) // 12 != expected_pmap_size or \
+                (len(data) - 18) % 12:
+            # truncated payload (reference subset.cc:1150-1153)
+            raise OxliFileError(
+                "error loading partitionmap - invalid # of items")
+        rec = np.frombuffer(data, np.dtype([("t", "<u8"), ("p", "<u4")]),
+                            offset=18)
+        self._merge_records(zip(rec["t"].tolist(), rec["p"].tolist()))
+
+    def merge(self, other):
+        """Merge another subset's map (subset.cc:935-1005)."""
+        self._merge_records(
+            (tag, other.partition_map[tag]) for tag in
+            sorted(other.partition_map)
+            if other.partition_map[tag] is not None)
+
+    def _merge_records(self, records):
+        """Merge (tag, partition id) records, in order: equal ids unify
+        their tags here."""
+        diskp_to_pid = {}
+        for tag, diskp in records:
+            local = diskp_to_pid.get(diskp)
+            existing = self.partition_map.get(tag)
+            if local is None:
+                local = existing if existing is not None else \
+                    self._new_pid()
+                diskp_to_pid[diskp] = local
+            if existing is None:
+                self.partition_map[tag] = local
+                self._rev.setdefault(local, set()).add(tag)
+            elif existing != local:
+                winner = self._rewrite(local, existing)
+                if winner != local:
+                    diskp_to_pid[diskp] = winner
+
+    # -- read output ------------------------------------------------------
+
+    def output_partitioned_file(self, infilename, outputfile,
+                                output_unassigned=False):
+        """Annotate reads with partition ids (subset.cc:115-334): the
+        first k-mer of the read found in the partition map decides.
+        Reads shorter than k are left out.  Returns the number of
+        partitions seen."""
+        from khmer_tpu_torch.io.fastx import FastxReader
+
+        n_partitions = set()
+        keys = self._keys(_sorted_u64(self.partition_map))
+        pmap = self.partition_map
+        k = self.graph.ksize()
+
+        def flush(reads, out):
+            # each read's first k-mer found in the map (K1, then a
+            # search of the map's sorted keys on the device)
+            seqs = [r.cleaned_seq for r in reads]
+            h, valid = self.graph._row_hashes(seqs)
+            hit = _member(keys, h.reshape(-1)).reshape(h.shape) & valid
+            col = hit.to(torch.int8).argmax(1)
+            found = hit.gather(1, col[:, None]).squeeze(1).cpu().numpy()
+            first = _u64.to_numpy(h.gather(1, col[:, None]).squeeze(1))
+            for i, read in enumerate(reads):
+                partition_id = 0
+                if found[i]:
+                    pid = pmap[int(first[i])]
+                    if pid is not None:
+                        partition_id = pid
+                        n_partitions.add(pid)
+                if partition_id > 0 or output_unassigned:
+                    if getattr(read, 'quality', None) is not None:
+                        out.write("@%s\t%d\n%s\n+\n%s\n" % (
+                            read.name, partition_id, seqs[i],
+                            read.quality))
+                    else:
+                        out.write(">%s\t%d\n%s\n" % (
+                            read.name, partition_id, seqs[i]))
+
+        with open(outputfile, "w") as out:
+            pending = []
+            for read in FastxReader(infilename):
+                if len(read.cleaned_seq) < k:
+                    continue
+                pending.append(read)
+                if len(pending) >= ANNOTATE_BATCH:
+                    flush(pending, out)
+                    pending = []
+            if pending:
+                flush(pending, out)
+        return len(n_partitions)
+
+
+def _pair_runs(sids, canons):
+    """A stable order of the (sid, canon) pairs by sid, then canon
+    (unsigned), and a bool per position of it: the first of its pair."""
+    order = torch.argsort(_u64.sort_key(canons), stable=True)
+    order = order[torch.argsort(sids[order], stable=True)]
+    s_o, c_o = sids[order], canons[order]
+    first = torch.ones(order.numel(), dtype=torch.bool, device=sids.device)
+    first[1:] = (s_o[1:] != s_o[:-1]) | (c_o[1:] != c_o[:-1])
+    return order, first
+
+
+def _pairs_in(qs, qc, ss, sc):
+    """Which query pairs (qs[i], qc[i]) are among the pairs (ss, sc);
+    each list holds distinct pairs."""
+    n = ss.numel()
+    order, first = _pair_runs(torch.cat([ss, qs]), torch.cat([sc, qc]))
+    out = torch.zeros(qs.numel(), dtype=torch.bool, device=qs.device)
+    query = order >= n
+    out[order[query] - n] = ~first[query]
+    return out

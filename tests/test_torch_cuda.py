@@ -982,3 +982,137 @@ def test_murmur_tables_small_on_card(dev, tmp_path):
         assert torch.equal(a.cpu(), b)
     assert launches["murmur_hashes"] and launches["hll_update"] and \
         kernels.ROW_COUNTS_BY_HASH["murmur"]
+
+
+# ---------------------------------------------------------------------------
+# K10 cc_rounds
+# ---------------------------------------------------------------------------
+
+
+def _cc_graph(case):
+    """(T, src, dst) uint32 numpy: one node and no edge; padding edges
+    only; a star; a path of 2**16 nodes; duplicate edges (each of 300
+    edges eight times, with padding); 2**20 random edges on 2**18 nodes."""
+    rng = np.random.default_rng(len(case))
+    if case == "one_node":
+        return 1, np.zeros(0, np.uint32), np.zeros(0, np.uint32)
+    if case == "padding":
+        return 100, np.zeros(500, np.uint32), np.zeros(500, np.uint32)
+    if case == "star":
+        leaves = np.arange(1, 5000, dtype=np.uint32)
+        return 5000, np.full(leaves.size, 2500, np.uint32), leaves
+    if case == "path":
+        src = np.arange((1 << 16) - 1, dtype=np.uint32)
+        return 1 << 16, src, src + 1
+    if case == "duplicates":
+        src = np.repeat(rng.integers(0, 1000, 300), 8).astype(np.uint32)
+        dst = np.repeat(rng.integers(0, 1000, 300), 8).astype(np.uint32)
+        return 1000, np.concatenate([src, np.zeros(100, np.uint32)]), \
+            np.concatenate([dst, np.zeros(100, np.uint32)])
+    T = 1 << 18
+    return T, rng.integers(0, T, 1 << 20).astype(np.uint32), \
+        rng.integers(0, T, 1 << 20).astype(np.uint32)
+
+
+def _as_i32(a, dev=None):
+    t = torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+    return t if dev is None else t.to(dev)
+
+
+@pytest.mark.parametrize("rounds", [1, 8, 17])
+@pytest.mark.parametrize("case", ["one_node", "padding", "star", "path",
+                                  "duplicates", "random"])
+def test_cc_rounds(dev, case, rounds):
+    """Labels and the changed flag equal the plain version's, bit for
+    bit, for a call from arange labels and a second call from its
+    output; the input labels are left as they were."""
+    T, src, dst = _cc_graph(case)
+    s, d = _as_i32(src, dev), _as_i32(dst, dev)
+    lab = torch.arange(T, dtype=torch.int32, device=dev)
+    want = torch.arange(T, dtype=torch.int32)
+    for _ in range(2):
+        before = lab.clone()
+        kernels.reset_launches()
+        got, changed = kernels.cc_rounds(lab, s, d, rounds)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["cc_rounds"] == 4 * rounds
+        assert torch.equal(lab, before)
+        want, w_changed = plain.cc_rounds(want, _as_i32(src), _as_i32(dst),
+                                          rounds)
+        assert torch.equal(got.cpu(), want)
+        assert bool(changed) == bool(w_changed)
+        lab = got
+
+
+def test_cc_rounds_refuses_past_int32(dev, monkeypatch):
+    """The size check runs before any launch (checked with the limit
+    lowered, so that no array of 2**31 labels is allocated)."""
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        kernels.check_cc_sizes(1 << 31, 0)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        kernels.check_cc_sizes(10, 1 << 31)
+    monkeypatch.setattr(kernels, "MAX_CC", 99)
+    kernels.reset_launches()
+    edges = torch.zeros(10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.cc_rounds(torch.arange(100, dtype=torch.int32, device=dev),
+                          edges, edges, 8)
+    with pytest.raises(ValueError):
+        big = torch.zeros(100, dtype=torch.int32, device=dev)
+        kernels.cc_rounds(torch.arange(10, dtype=torch.int32, device=dev),
+                          big, big, 8)
+    assert kernels.LAUNCHES["cc_rounds"] == 0
+
+
+def test_partition_scripts_small_on_card(dev, tmp_path):
+    """load-graph, partition-graph (three subsets, and
+    --no-big-traverse), merge-partitions, annotate-partitions and
+    extract-partitions on the card write the CPU run's bytes, and
+    do_partition_device's partitions on the card equal the CPU run's."""
+    import os
+
+    from khmer_tpu_torch import Nodegraph, SubsetPartition
+    from khmer_tpu_torch.scripts import (annotate_partitions,
+                                         extract_partitions, load_graph,
+                                         merge_partitions, partition_graph)
+
+    rng = np.random.default_rng(21)
+    with open(str(tmp_path / "reads.fa"), "w") as f:
+        for g in range(8):
+            genome = "".join(rng.choice(list("ACGT"), 600))
+            for i, s in enumerate(rng.integers(0, 500, 40)):
+                f.write(">g%dr%d\n%s\n" % (g, i, genome[s:s + 100]))
+    out = {}
+    here = os.getcwd()
+    kernels.reset_launches()
+    for d in (dev, "cpu"):
+        wd = tmp_path / str(d)
+        wd.mkdir()
+        os.chdir(str(wd))
+        try:
+            load_graph.main(["-k", "20", "-N", "4", "-x", "20011", "g",
+                             "../reads.fa"], device=d)
+            partition_graph.main(["-s", "40", "g"], device=d)
+            merge_partitions.main(["-k", "20", "--keep-subsets", "g"],
+                                  device=d)
+            annotate_partitions.main(["-k", "20", "g", "../reads.fa"],
+                                     device=d)
+            extract_partitions.main(["-m", "2", "g", "reads.fa.part"],
+                                    device=d)
+            partition_graph.main(["--no-big-traverse", "g"], device=d)
+            ng = Nodegraph.load("g", device=d)
+            ng.load_tagset("g.tagset")
+            sp = SubsetPartition(ng)
+            sp.do_partition_device()
+            sp.save_partitionmap("device.pmap")
+        finally:
+            os.chdir(here)
+        out[str(d)] = {f: open(str(wd / f), "rb").read()
+                       for f in sorted(os.listdir(str(wd)))}
+        if d == dev:
+            launches = dict(kernels.LAUNCHES)
+    assert out[str(dev)] == out["cpu"]
+    assert len(out["cpu"]) >= 8
+    for name in ("hash2bit_canonical", "sketch_update", "sketch_get",
+                 "cc_rounds"):
+        assert launches[name], name

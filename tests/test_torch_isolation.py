@@ -67,7 +67,24 @@ def test_importing_the_port_loads_no_jax():
                           env=subprocess_env(), capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(_port_modules()) >= 20
+    assert len(_port_modules()) >= 44
+
+
+# the modules of the tag-based partitioning slice, which the scans above
+# must reach
+PARTITION_MODULES = (
+    "khmer_tpu_torch.graph", "khmer_tpu_torch.traversal",
+    "khmer_tpu_torch.partitioning", "khmer_tpu_torch.partition_device",
+    "khmer_tpu_torch.scripts.load_graph",
+    "khmer_tpu_torch.scripts.partition_graph",
+    "khmer_tpu_torch.scripts.merge_partitions",
+    "khmer_tpu_torch.scripts.annotate_partitions",
+    "khmer_tpu_torch.scripts.extract_partitions")
+
+
+@pytest.mark.parametrize("module", PARTITION_MODULES)
+def test_partition_modules_are_scanned(module):
+    assert module in _port_modules()
 
 
 def test_default_device_refuses_to_run_on_cpu():
