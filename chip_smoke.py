@@ -106,6 +106,33 @@ Phases (any failure exits non-zero; nothing is caught):
      2**22 nodes, a random graph of 2**22 nodes and 2**24 edges (an
      eighth of them repeats, an eighth padding (0, 0)) and phase 7's star
      edge list; CUDA-event times a call of 8 and of 1 round.
+  3e. slice-3b kernels against their plain versions on the card, exact:
+     K11 (cyclic_hashes) on the first 16,384 phase-5 reads as ASCII rows
+     at k = 20, 51, 64, 65 and 128, and at k = 51 on the same rows with a
+     tenth of their bytes lowercase, N or IUPAC; K11's flat form on the
+     first 2**23-base chunk of the phase-4 file (phase 8's shape); K5c
+     (row_counts, hash_kind "cyclic") at k = 20 (phase 8's shape) and 51
+     against a 4 x 1e8 CyclicCounttable holding the rows' k-mers, with and
+     without hashes;
+  8. slice 3b's path through the port's script entry points, -k 20 -N 4
+     -x 1e8: load-into-counting and abundance-dist-single --small-count
+     on the phase-4 file; normalize-by-median -p -C 20 --savegraph,
+     filter-abund-single -C 2, trim-low-abund -C 3 -Z 18 -V and
+     trim-low-abund --loadgraph (the small .ct), all --small-count, on
+     the first 320,000 reads of the phase-5 file (a quarter of it, cut
+     for the smoke's time limit); then a CyclicCounttable(20, 1e8, 4):
+     consume_seqfile and abundance_distribution of the phase-4 file,
+     get_median_count_batch of the first 16,384 phase-5 reads, save,
+     load and save again.  Held against (a) the same runs through the
+     plain versions on the card (every output file, n_unique, the saved
+     bytes identical), (b) the small .ct's bins equal to min(bin, 15) of
+     phase 4's byte .ct, read with numpy alone, (c) the --small-count
+     histogram equal to phase 4's abundance-dist-single histogram with
+     every row at 15 or above summed into row 15, and (d) the cyclic
+     n_unique within the collision bound of phase 4's exact distinct
+     count; (e) K11, K5c and K3 at cap 15 must have been launched by
+     this run.  Walls, device busy shares and peak device memory are
+     printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -118,6 +145,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -155,6 +183,10 @@ SOURCES = {
                    "khmer_tpu/hllcounter.py:62"),
     "cc_rounds": ("khmer_tpu_torch/kernels/csrc/cc.cu",
                   "khmer_tpu/partition_device.py:42"),
+    "cyclic_hashes": ("khmer_tpu_torch/kernels/csrc/cyclic.cu",
+                      "khmer_tpu/ops/rollinghash.py:155"),
+    "row_counts_cyclic": ("khmer_tpu_torch/kernels/csrc/rows.cu",
+                          "khmer_tpu/hashtable.py:472"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
@@ -182,6 +214,14 @@ PARTITION_GENOMES = 1000
 PARTITION_READS = 400_000
 PARTITION_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
                   "cc_rounds")
+# slice 3b (phases 3e and 8): K11's k in phase 3e, the nibble kind's read
+# cap, phase 8's cut of the phase-5 file and the kernels its path runs
+CYCLIC_KS = (K, MURMUR_K, 64, 65, 128)
+NIBBLE_CAP = 15
+SMALL_READS = 320_000
+SMALL_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
+              "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
+              "trim_chain", "cyclic_hashes")
 
 
 def fail(msg):
@@ -2014,6 +2054,397 @@ def check_cc_kernel(seed, dev, rec, star):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the slice-3b kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_cyclic_kernels(seed, dev, reads_fa, pairs_fa, rec):
+    """K11 on 16,384 phase-5 rows at CYCLIC_KS (and with other bytes) and
+    on the flat chunk phase 8 hashes, K5c on the rows at k = 20 and 51
+    against a CyclicCounttable holding their k-mers.  Library time: none,
+    no PyTorch call computes this hash."""
+    import torch
+
+    from khmer_tpu_torch import CyclicCounttable, kernels
+    from khmer_tpu_torch.hashtable import _ascii, _pad_rows
+    from khmer_tpu_torch.kernels import plain
+
+    log("phase 3e: K11 on {} phase-5 rows at k = {} and on a {}-base chunk "
+        "of the phase-4 file; K5c at k = {} and {}".format(
+            BATCH, CYCLIC_KS, FLAT, K, MURMUR_K))
+    seqs = fixed_records(pairs_fa, BATCH, 114, 13)
+    k11 = {}
+    for k in CYCLIC_KS:
+        byts, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+            seqs, k, encode=_ascii))
+        cases = [("rows", byts)]
+        if k == MURMUR_K:
+            cases.append(("mixed", mixed_bytes(byts, seed)))
+        for form, b in cases:
+            B, L = b.shape
+            W = L - k + 1
+            got = kernels.cyclic_hashes(b, lengths, k)
+            ref = plain.cyclic_hashes(b, lengths, k)
+            err = max(max_abs_err(got[0], ref[0]),
+                      max_abs_err(got[1], ref[1]))
+            del got, ref
+            k11["k{}_{}".format(k, form)] = r = dict(
+                err=err, rows=B, width=L,
+                ms=cuda_ms(lambda: kernels.cyclic_hashes(b, lengths, k), 10),
+                plain_ms=cuda_ms(lambda: plain.cyclic_hashes(b, lengths, k),
+                                 2, inner=1),
+                bound_ms=bound_ms(B * L + B * 4 + B * W * 9))
+            log("K11 k={} {:5s} rows {} x {}: err={} ms={:.4f} "
+                "plain_ms={:.4f} bound_ms={:.4f}".format(
+                    k, form, B, L, err, r["ms"], r["plain_ms"],
+                    r["bound_ms"]))
+            if err:
+                fail("cyclic_hashes disagrees with its plain version")
+        del cases, b, byts, lengths
+    # K5c at phase 8's k and at 51, the table holding the rows' k-mers
+    k5c = {}
+    for k in (K, MURMUR_K):
+        byts, lengths = (torch.from_numpy(a).to(dev) for a in _pad_rows(
+            seqs, k, encode=_ascii))
+        B, L = byts.shape
+        W = L - k + 1
+        h, valid = kernels.cyclic_hashes(byts, lengths, k)
+        ct = CyclicCounttable(k, TABLE_SIZE, 4, device=dev)
+        st = ct.storage
+        live = h[valid]
+        st.add_lanes(live, torch.ones_like(live, dtype=torch.int32))
+        distinct = int(torch.unique(live).numel())
+        del h, valid, live
+        geom, cap = st._geom, st.read_cap()
+        err = 0
+        for want in (False, True):
+            got = kernels.row_counts(byts, lengths, k, st.table, *geom, cap,
+                                     want, "cyclic")
+            ref = plain.row_counts(byts, lengths, k, st.table, *geom, cap,
+                                   want, "cyclic")
+            err = max(err, max_abs_err(got[0].to(torch.int32),
+                                       ref[0].to(torch.int32)))
+            if want:
+                err = max(err, max_abs_err(got[1], ref[1]))
+        del got, ref
+        base = B * L + B * 4 + distinct * st.spec.n_tables * 4
+        k5c[k] = r = dict(
+            err=err, rows=B, width=L, k=k, distinct=distinct,
+            ms=cuda_ms(lambda: kernels.row_counts(
+                byts, lengths, k, st.table, *geom, cap, False, "cyclic"),
+                10),
+            hashes_ms=cuda_ms(lambda: kernels.row_counts(
+                byts, lengths, k, st.table, *geom, cap, True, "cyclic"), 10),
+            plain_ms=cuda_ms(lambda: plain.row_counts(
+                byts, lengths, k, st.table, *geom, cap, True, "cyclic"),
+                2, inner=1),
+            bytes=base + B * W * 10, counts_bound_ms=bound_ms(
+                base + B * W * 2))
+        log("K5c k={} rows {} x {}: {}".format(k, B, L, json.dumps(r)))
+        if err:
+            fail("row_counts (cyclic) disagrees with its plain version")
+        del ct, st, byts, lengths
+        gc.collect()
+        torch.cuda.empty_cache()
+    # phase 8's call: get_median_count_batch reads counts and hashes
+    main = k5c[K]
+    record_kernel(rec, "row_counts_cyclic",
+                  max(r["err"] for r in k5c.values()), main["hashes_ms"],
+                  main["plain_ms"], main["bytes"], k=K, rows=main["rows"],
+                  width=main["width"], counts_only_ms=main["ms"],
+                  counts_only_bound_ms=main["counts_bound_ms"],
+                  **{"k{}_{}".format(MURMUR_K, key): v
+                     for key, v in k5c[MURMUR_K].items()
+                     if key in ("ms", "hashes_ms", "plain_ms", "err")})
+
+    # the flat form on the first chunk of the phase-4 file: phase 8's
+    # consume_seqfile and abundance_distribution hash such chunks
+    byts, _ = first_chunk(reads_fa, K, dev)
+    n = byts.numel()
+    one = torch.full((1,), n, dtype=torch.int32, device=dev)
+    got = kernels.cyclic_hashes(byts[None, :], one, K)
+    ref = plain.cyclic_hashes(byts[None, :], one, K)
+    err = max(max_abs_err(got[0], ref[0]), max_abs_err(got[1], ref[1]))
+    del got, ref
+    k11["flat"] = r = dict(
+        err=err, bases=n, k=K,
+        ms=cuda_ms(lambda: kernels.cyclic_hashes(byts[None, :], one, K), 10),
+        plain_ms=cuda_ms(lambda: plain.cyclic_hashes(byts[None, :], one, K),
+                         2, inner=1),
+        bytes=n + 4 + (n - K + 1) * 9)
+    log("K11 flat {} bases k={}: {}".format(n, K, json.dumps(r)))
+    if err:
+        fail("cyclic_hashes (flat) disagrees with its plain version")
+    record_kernel(rec, "cyclic_hashes", max(v["err"] for v in k11.values()),
+                  r["ms"], r["plain_ms"], r["bytes"], k=K, bases=n,
+                  shapes={key: v for key, v in k11.items() if key != "flat"})
+    del byts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: slice 3b, the 4-bit tables and the cyclic hash, at full width
+# ---------------------------------------------------------------------------
+
+
+def ct_tables(path):
+    """(k, occupied, per-table uint8 bins) of an OXLI count file
+    (SAVED_COUNTING_HT = 1 or SAVED_SMALLCOUNT = 7), read with numpy
+    alone: a byte table holds one bin a byte, a small one two (the even
+    bin in the high nibble) and a pad nibble, which must be 0."""
+    raw = np.fromfile(path, np.uint8)
+    ht_type = int(raw[5])
+    if raw[:4].tobytes() != b"OXLI" or ht_type not in (1, 7):
+        fail("{} is not an OXLI count file".format(path))
+    off = 6 + (ht_type == 1)  # a byte table's bigcount flag
+    ksize, n_tables, occupied = struct.unpack_from("<IBQ", raw, off)
+    off += 13
+    tables = []
+    for _ in range(n_tables):
+        (size,) = struct.unpack_from("<Q", raw, off)
+        off += 8
+        nbytes = size if ht_type == 1 else size // 2 + 1
+        b = raw[off: off + nbytes]
+        off += nbytes
+        if ht_type == 7:
+            pair = np.stack([b >> 4, b & 15], 1).reshape(-1)
+            if pair[size:].any():
+                fail("{}: a pad nibble is not 0".format(path))
+            b = pair[:size]
+        tables.append(b)
+    return ksize, occupied, tables
+
+
+def hist_rows(csv):
+    """{abundance: count} of the nonzero rows of an abundance-dist CSV."""
+    out = {}
+    for line in csv.splitlines()[1:]:
+        a, c = line.split(b",")[:2]
+        if int(c):
+            out[int(a)] = int(c)
+    return out
+
+
+def cyclic_table_run(reads_fa, pairs_fa, dev):
+    """CyclicCounttable(20, 1e8, 4) on `dev`, in the working directory:
+    consume_seqfile and abundance_distribution of the phase-4 file,
+    get_median_count_batch of the first 16,384 phase-5 reads (K5c), save,
+    load and save again.  Returns what it read and the saved files'
+    sha256."""
+    from khmer_tpu_torch import CyclicCounttable, Nodetable
+
+    ct = CyclicCounttable(K, TABLE_SIZE, 4, device=dev)
+    ct.consume_seqfile(reads_fa)
+    out = {"cyclic n_unique": ct.n_unique_kmers()}
+    hist = ct.abundance_distribution(
+        reads_fa, Nodetable(K, 1, 1, primes=ct.hashsizes(), device=dev))
+    out["cyclic histogram"] = hashlib.sha256(
+        np.array(hist, np.int64).tobytes()).hexdigest()
+    out["cyclic histogram total"] = int(sum(hist))
+    medians = ct.get_median_count_batch(fixed_records(pairs_fa, BATCH, 114,
+                                                      13))
+    out["cyclic medians"] = hashlib.sha256(json.dumps(medians).encode()) \
+        .hexdigest()
+    ct.save("cyclic.ct")
+    del ct
+    CyclicCounttable.load("cyclic.ct", device=dev).save("cyclic_again.ct")
+    for name in ("cyclic.ct", "cyclic_again.ct"):
+        with open(name, "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def small_count_runs(workdir, reads_fa, quarter_fa, pairs_fa, dev, profile,
+                     card):
+    """Phase 8's runs on `dev`, in `workdir`: their walls (and device busy
+    seconds when `profile`), every output file's sha256, reads and bases
+    written, the n_unique values read and the cyclic table's results."""
+    from khmer_tpu_torch.hashtable import Hashtable
+    from khmer_tpu_torch.scripts import (abundance_dist_single,
+                                         filter_abund_single,
+                                         load_into_counting,
+                                         normalize_by_median, trim_low_abund)
+
+    os.makedirs(workdir)
+    table = ["-q", "--small-count", "-k", str(K), "-N", "4", "-x",
+             repr(TABLE_SIZE)]
+    runs = [
+        ("load-into-counting --small-count", load_into_counting.main,
+         table + ["small.ct", reads_fa], ["small.ct"]),
+        ("abundance-dist-single --small-count", abundance_dist_single.main,
+         table + [reads_fa, "small.hist"], ["small.hist"]),
+        ("normalize-by-median --small-count", normalize_by_median.main,
+         table + ["-p", "-C", "20", "--savegraph", "nbm.ct", "-o", "nbm.fa",
+                  quarter_fa], ["nbm.fa", "nbm.ct"]),
+        ("filter-abund-single --small-count", filter_abund_single.main,
+         table + ["-C", "2", "-o", "single.fa", quarter_fa], ["single.fa"]),
+        ("trim-low-abund --small-count", trim_low_abund.main,
+         table + ["-C", "3", "-Z", "18", "-V", "-o", "trim.fa", quarter_fa],
+         ["trim.fa"]),
+        ("trim-low-abund --small-count --loadgraph", trim_low_abund.main,
+         ["-q", "--small-count", "--loadgraph", "small.ct", "-C", "3", "-Z",
+          "18", "-V", "-o", "trimlg.fa", quarter_fa], ["trimlg.fa"]),
+    ]
+    n_unique = []
+    counted = Hashtable.n_unique_kmers
+
+    def n_unique_kmers(self):
+        n_unique.append(counted(self))
+        return n_unique[-1]
+
+    out = {"walls": {}, "busy": {}}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+
+    def timed(name, run):
+        sync(dev)
+        if profile:
+            wall, busy = device_share(name, run, card)
+            out["busy"][name] = busy
+        else:
+            t0 = time.perf_counter()
+            run()
+            sync(dev)
+            wall = time.perf_counter() - t0
+        out["walls"][name] = wall
+        gc.collect()
+
+    try:
+        with mock.patch.object(Hashtable, "n_unique_kmers", n_unique_kmers):
+            for name, fn, argv, outputs in runs:
+                timed(name, lambda: fn(argv, device=dev))
+                for o in outputs:
+                    with open(o, "rb") as f:
+                        out[o] = hashlib.sha256(f.read()).hexdigest()
+                    if o.endswith(".fa"):
+                        out[o + " reads,bases"] = count_records(o)
+            got = {}
+            timed("CyclicCounttable", lambda: got.update(cyclic_table_run(
+                reads_fa, pairs_fa, dev)))
+            out.update(got)
+    finally:
+        os.chdir(cwd)
+    out["n_unique"] = n_unique
+    return out
+
+
+def run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4):
+    """Phase 8: the runs through the kernels (profiled) and through the
+    plain versions, then checks (a)-(e).  Returns the path's launches."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+
+    quarter_fa = os.path.join(tmp, "quarter.fa")
+    with open(pairs_fa, "rb") as f, open(quarter_fa, "wb") as g:
+        g.write(f.read(SMALL_READS * 114))
+    log("phase 8: --small-count scripts on the phase-4 file and on the "
+        "first {} reads of the phase-5 file; a CyclicCounttable on the "
+        "phase-4 file".format(SMALL_READS))
+    t_phase = time.perf_counter()
+    # K3 launches by read cap
+    k3_caps = {}
+    k3 = kernels.sketch_get
+
+    def sketch_get(table, hashes, sizes, offsets, recips, cap):
+        before = kernels.LAUNCHES["sketch_get"]
+        got = k3(table, hashes, sizes, offsets, recips, cap)
+        k3_caps[int(cap)] = k3_caps.get(int(cap), 0) + \
+            kernels.LAUNCHES["sketch_get"] - before
+        return got
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with mock.patch.object(kernels, "sketch_get", sketch_get):
+        got = small_count_runs(os.path.join(tmp, "s3b_kernels"), reads_fa,
+                               quarter_fa, pairs_fa, dev, True, card)
+    launches = dict(kernels.LAUNCHES)
+    by_hash = dict(kernels.ROW_COUNTS_BY_HASH)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 8 launches: {}; row_counts by hash: {}; K3 by read cap: {}"
+        .format(json.dumps(launches), json.dumps(by_hash),
+                json.dumps(k3_caps)))
+    log("phase 8 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in SMALL_PATH if launches[k] == 0]
+    if missing or not by_hash["cyclic"] or not k3_caps.get(NIBBLE_CAP):
+        fail("(e) kernels not launched by the slice-3b path: {}{}{}".format(
+            missing, "" if by_hash["cyclic"] else " and K5c",
+            "" if k3_caps.get(NIBBLE_CAP) else " and K3 at cap 15"))
+    for name, wall in got["walls"].items():
+        reads = 640_000 if "counting" in name or "dist" in name or \
+            name == "CyclicCounttable" else SMALL_READS
+        busy = got["busy"].get(name)
+        log("{}: {:.3f} s (profiled), {:.0f} reads/s, device busy {} [{}]"
+            .format(name, wall, reads / wall,
+                    "not measured" if busy is None else
+                    "{:.3f} s = {:.1f}%".format(busy, 100 * busy / wall),
+                    card))
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = small_count_runs(os.path.join(tmp, "s3b_plain"), reads_fa,
+                               quarter_fa, pairs_fa, dev, False, card)
+    log("phase 8 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    keys = [k for k in got if k not in ("walls", "busy")]
+    for k in keys:
+        if got[k] != ref[k]:
+            fail("(a) slice-3b path differs from its plain run in {}: {} vs "
+                 "{}".format(k, got[k], ref[k]))
+    log("(a) kernels == plain on the card: {}".format(json.dumps(
+        {k: got[k] for k in keys})))
+    if got["cyclic.ct"] != got["cyclic_again.ct"]:
+        fail("(a) the loaded cyclic table saves other bytes")
+
+    # (b) the small .ct against phase 4's byte .ct
+    k4, occ4, byte_bins = ct_tables(os.path.join(tmp, "kernels", "reads.ct"))
+    ks, occs, small_bins = ct_tables(os.path.join(tmp, "s3b_kernels",
+                                                  "small.ct"))
+    if (ks, occs) != (k4, occ4) or len(small_bins) != len(byte_bins) or any(
+            not np.array_equal(a, np.minimum(b, NIBBLE_CAP))
+            for a, b in zip(small_bins, byte_bins)):
+        fail("(b) the small .ct is not min(phase-4 bins, 15)")
+    at_cap = int(sum(int((a == NIBBLE_CAP).sum()) for a in small_bins))
+    log("(b) small .ct bins == min(phase-4 .ct bins, 15): {} tables, {} "
+        "occupied, {} bins at 15".format(len(small_bins), occs, at_cap))
+    # (c) the folded histogram
+    with open(os.path.join(tmp, "kernels", "single.hist"), "rb") as f:
+        full = hist_rows(f.read())
+    with open(os.path.join(tmp, "s3b_kernels", "small.hist"), "rb") as f:
+        small = hist_rows(f.read())
+    folded = {}
+    for a, c in full.items():
+        folded[min(a, NIBBLE_CAP)] = folded.get(min(a, NIBBLE_CAP), 0) + c
+    if small != folded:
+        fail("(c) the --small-count histogram is not phase 4's folded at 15")
+    log("(c) --small-count histogram == phase 4's folded at 15: {} rows, "
+        "{} k-mers at 15".format(len(small), small.get(NIBBLE_CAP, 0)))
+    # (d) the cyclic n_unique against the exact distinct count
+    distinct = int(uniq4.size)
+    occ = 1.0 - math.exp(-distinct / min(get_n_primes_near_x(4, TABLE_SIZE)))
+    bound = int(math.ceil(10 * distinct * occ ** 4)) + 10
+    nu = got["cyclic n_unique"]
+    log("(d) cyclic n_unique {} against {} distinct canonical k-mers "
+        "(collision bound {}); histogram total {}".format(
+            nu, distinct, bound, got["cyclic histogram total"]))
+    if not 0 <= distinct - nu <= bound:
+        fail("(d) cyclic n_unique {} is not within {} below the exact {}"
+             .format(nu, bound, distinct))
+    kept = got["nbm.fa reads,bases"][0]
+    if not 0 < kept <= SMALL_READS:
+        fail("normalize-by-median --small-count kept {} of {} reads".format(
+            kept, SMALL_READS))
+    log("phase 8: {:.1f} s with its plain run and checks [{}]".format(
+        time.perf_counter() - t_phase, card))
+    launches["row_counts_cyclic"] = by_hash["cyclic"]
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2048,13 +2479,19 @@ def main():
         murmur = run_murmur(card, dev, tmp, reads_fa, pairs_fa, uniq4)
         partition, star, _ = run_partition(card, dev, tmp, args.seed)
         check_cc_kernel(args.seed, dev, rec, star)
+        check_cyclic_kernels(args.seed, dev, reads_fa, pairs_fa, rec)
+        small = run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by
-    # the partitioning path (phase 7)
-    launches.update({k: slice2[k] for k in SOURCES if k not in MAIN_PATH})
+    # the partitioning path (phase 7), K11 and K5c by the slice-3b path
+    # (phase 8)
+    launches.update({k: slice2[k] for k in SOURCES
+                     if k not in MAIN_PATH and k in slice2})
     launches.update({k: murmur[k] for k in ("murmur_hashes", "hll_update")})
     launches["cc_rounds"] = partition["cc_rounds"]
+    launches.update({k: small[k] for k in ("cyclic_hashes",
+                                           "row_counts_cyclic")})
     rec["row_counts"]["murmur_launches"] = murmur["row_counts_murmur"]
 
     from khmer_tpu_torch.kernels import (CC_BLOCK, CC_KERNELS_PER_ROUND,
@@ -2068,7 +2505,8 @@ def main():
         kernels_line.append(dict(name=name, route="cuda", source=source,
                                  replaces=replaces,
                                  launches=launches[name],
-                                 kernels_per_call=KERNELS_PER_CALL[name]
+                                 kernels_per_call=KERNELS_PER_CALL.get(
+                                     name, 1)
                                  if name != "cc_rounds" else
                                  CC_KERNELS_PER_ROUND * CC_BLOCK,
                                  **rec[name]))

@@ -17,7 +17,11 @@ the murmur hash family (slice 3a): Counttable and Nodetable (any k up to
 the script unique-kmers; tag-based partitioning (slice 4a): Hashgraph's
 tags, SubsetPartition (with the device engine do_partition_device) and
 the scripts load-graph, partition-graph, merge-partitions,
-annotate-partitions and extract-partitions.
+annotate-partitions and extract-partitions; 4-bit counts and the cyclic
+hash (slice 3b): SmallCountgraph (behind ``--small-count`` in
+load-into-counting, abundance-dist-single, normalize-by-median,
+filter-abund-single and trim-low-abund), SmallCounttable and
+CyclicCounttable (the rolling hash, any k up to 255).
 """
 
 from collections import namedtuple
@@ -25,8 +29,10 @@ from struct import unpack
 import sys
 
 from khmer_tpu_torch._version import __version__
-from khmer_tpu_torch.graph import Countgraph, Hashgraph, Nodegraph
-from khmer_tpu_torch.hashtable import Counttable, Nodetable
+from khmer_tpu_torch.graph import (Countgraph, Hashgraph, Nodegraph,
+                                   SmallCountgraph)
+from khmer_tpu_torch.hashtable import (Counttable, CyclicCounttable,
+                                       Nodetable, SmallCounttable)
 from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxReader, Read
 from khmer_tpu_torch.io.oxli_format import FILETYPES
@@ -36,8 +42,9 @@ from khmer_tpu_torch.ops.hashing import (
 )
 from khmer_tpu_torch.partitioning import SubsetPartition
 
-__all__ = ["Countgraph", "Counttable", "FastxReader", "HLLCounter",
-           "Hashgraph", "Nodegraph", "Nodetable", "Read", "ReadParser",
+__all__ = ["Countgraph", "Counttable", "CyclicCounttable", "FastxReader",
+           "HLLCounter", "Hashgraph", "Nodegraph", "Nodetable", "Read",
+           "ReadParser", "SmallCountgraph", "SmallCounttable",
            "SubsetPartition", "__version__", "calc_expected_collisions",
            "extract_countgraph_info", "hash_murmur3", "hash_no_rc_murmur3"]
 

@@ -12,15 +12,15 @@ import torch
 
 from khmer_tpu_torch.graph import Countgraph
 from khmer_tpu_torch.hllcounter import HLLCounter
-from khmer_tpu_torch.storage import BitStorage, ByteStorage
+from khmer_tpu_torch.storage import BY_KIND
 
 
 def storage_from_numpy(kind, tablesizes, bins_u32, n_unique=0,
                        bigcount_candidates=(), bigcounts=None,
                        device=None):
-    """A 'byte' or 'bit' Storage holding the given uint32 bins."""
-    cls = {"byte": ByteStorage, "bit": BitStorage}[kind]
-    st = cls(tablesizes, device=device)
+    """A 'byte', 'nibble' or 'bit' Storage holding the given uint32
+    bins."""
+    st = BY_KIND[kind](tablesizes, device=device)
     bins = np.array(bins_u32, np.uint32)
     if bins.shape != (st.spec.total_bins + 1,):
         raise ValueError("expected {} bins, got {}".format(
@@ -45,9 +45,10 @@ def countgraph_from_numpy(ksize, tablesizes, bins_u32, n_unique=0,
 def table_from_numpy(cls, ksize, tablesizes, bins_u32, n_unique=0,
                      bigcount_candidates=(), bigcounts=None,
                      use_bigcount=False, device=None):
-    """A table of class `cls` (Countgraph, Nodegraph, Counttable or
-    Nodetable) over the given uint32 bins; use_bigcount as khmer_tpu's
-    table has it (counting tables only)."""
+    """A table of class `cls` (Countgraph, SmallCountgraph, Nodegraph,
+    Counttable, SmallCounttable, CyclicCounttable or Nodetable) over the
+    given uint32 bins; use_bigcount as khmer_tpu's table has it (byte
+    tables only)."""
     t = cls.__new__(cls)
     t._ksize = int(ksize)
     t.storage = storage_from_numpy(cls.storage_class.kind, tablesizes,

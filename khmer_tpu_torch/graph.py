@@ -1,4 +1,5 @@
-"""de Bruijn graph tables: Hashgraph, with Countgraph and Nodegraph.
+"""de Bruijn graph tables: Hashgraph, with Countgraph, SmallCountgraph
+and Nodegraph.
 
 Port of khmer_tpu/graph.py:23-619, the tag and partition surface that
 load-graph, partition-graph, merge-partitions and annotate-partitions
@@ -22,7 +23,7 @@ from khmer_tpu_torch.hashtable import Hashtable, _pad_rows
 from khmer_tpu_torch.io import oxli_format
 from khmer_tpu_torch.io.fastx import FastxReader
 from khmer_tpu_torch.ops.hashing import kmer_hashes_2bit
-from khmer_tpu_torch.storage import BitStorage, ByteStorage
+from khmer_tpu_torch.storage import BitStorage, ByteStorage, NibbleStorage
 
 # reads per consume-and-tag batch; any batch tags the same k-mers
 TAG_BATCH = 16384
@@ -264,6 +265,13 @@ class Countgraph(Hashgraph):
     """8-bit counting de Bruijn graph (2-bit exact hash, k <= 32)."""
 
     storage_class = ByteStorage
+
+
+class SmallCountgraph(Hashgraph):
+    """4-bit counting de Bruijn graph (khmer_tpu/graph.py:601): counts
+    read at cap 15, saved two to a byte (SAVED_SMALLCOUNT)."""
+
+    storage_class = NibbleStorage
 
 
 class Nodegraph(Hashgraph):

@@ -14,17 +14,21 @@ windows, so _DeferSchedule mirrors it there.
 
 Read-level queries pad rows as khmer_tpu does and read every window's
 count with kernel K5, which hashes and reads in one pass.  The
-streaming filters take a batch of read bundles per call: K1 (K8 for
-murmur tables) hashes it,
+streaming filters take a batch of read bundles per call: K1 (K8 or K11
+for murmur or cyclic tables) hashes it,
 the batch's distinct k-mers get ids (a sort) and K3 reads their counts
 before the batch, kernel K6 (normalize-by-median) or K7 (trim-low-abund)
 takes the sequential per-bundle decision in one block, and K2 adds the
 taken bundles' tally to the sketch once.
 
-Tables over the murmur hash (Counttable, Nodetable; any k up to 255)
-take the same paths with kernel K8 in place of K1: flat chunks of the
-cleaned stream are turned back into ASCII and hashed with the
-bulk-consume complement, and rows carry the ASCII bytes of the reads.
+Tables over the murmur hash (Counttable, Nodetable, SmallCounttable;
+any k up to 255) take the same paths with kernel K8 in place of K1:
+flat chunks of the cleaned stream are turned back into ASCII and hashed
+with the bulk-consume complement, and rows carry the ASCII bytes of the
+reads.  CyclicCounttable does the same over the cyclic hash, kernel K11
+(K5's cyclic variant for the row queries); that hash has one table for
+every byte, so it takes no complement form.  SmallCountgraph and
+SmallCounttable (NibbleStorage) run the same kernels at read cap 15.
 """
 
 import math
@@ -36,14 +40,15 @@ from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import KSIZE_MAX, MAX_BIGCOUNT, MAX_KCOUNT
 from khmer_tpu_torch.io import oxli_format
 from khmer_tpu_torch.ops import encode as enc
-from khmer_tpu_torch.ops.hashing import (chunk_hashes, forward_hash,
-                                         hash_murmur3_scalar,
+from khmer_tpu_torch.ops.hashing import (chunk_hashes, cyclic_window_hashes,
+                                         forward_hash, hash_murmur3_scalar,
                                          kmer_hashes_2bit,
                                          murmur_window_hashes, reverse_hash,
                                          row_hashes_counts)
+from khmer_tpu_torch.ops.rollinghash import hash_cyclic_scalar
 from khmer_tpu_torch.ops.sketch_ops import sketch_update
 from khmer_tpu_torch.primes import get_n_primes_near_x
-from khmer_tpu_torch.storage import BitStorage, ByteStorage
+from khmer_tpu_torch.storage import BitStorage, ByteStorage, NibbleStorage
 
 # bases per device chunk; any size gives the same table, counts and
 # histogram
@@ -74,9 +79,9 @@ def _lane_count(k, bases, hash_kind="2bit"):
     """Lanes of khmer_tpu's hash of a chunk of `bases`
     (hashtable.py:_chunk_lane_count): for the 2-bit hash, phase-major, 16
     phases x rows x the words of a row of ROW_PAYLOAD + k - 1 codes; for
-    murmur, ROW_PAYLOAD lanes a row."""
+    the byte hashes (murmur, cyclic), ROW_PAYLOAD lanes a row."""
     rows = bases // ROW_PAYLOAD
-    if hash_kind == "murmur":
+    if hash_kind != "2bit":
         return rows * ROW_PAYLOAD
     return 16 * rows * -(-(ROW_PAYLOAD + k - 1) // 16)
 
@@ -99,8 +104,8 @@ def _row_width(max_len, k):
 
 
 def _ascii(seq):
-    """A sequence's bytes as khmer_tpu's murmur tables hash them
-    (hashtable.py:_encode)."""
+    """A sequence's bytes as khmer_tpu's murmur and cyclic tables hash
+    them (hashtable.py:_encode)."""
     return np.frombuffer(seq.encode("ascii"), np.uint8).copy()
 
 
@@ -294,7 +299,8 @@ class _StreamStats:
 
 class Hashtable:
     """Base k-mer table over the exact 2-bit hash (k <= 32) or, for
-    hash_kind "murmur", the murmur hash (k <= 255)."""
+    hash_kind "murmur" or "cyclic", the murmur or cyclic hash (k <=
+    255)."""
 
     storage_class = None
     hash_kind = "2bit"
@@ -354,45 +360,56 @@ class Hashtable:
                     self._ksize, len(kmer)))
         if self.hash_kind == "murmur":
             return hash_murmur3_scalar(kmer)
+        if self.hash_kind == "cyclic":
+            return hash_cyclic_scalar(kmer, self._ksize)[0]
         return forward_hash(kmer, self._ksize)
 
     def reverse_hash(self, khash):
-        """The k-mer of a 2-bit hash; the murmur hash has no inverse
-        (reference hashtable.hh:468-472)."""
+        """The k-mer of a 2-bit hash; the murmur and cyclic hashes have
+        no inverse (reference hashtable.hh:468-472)."""
         if self.hash_kind != "2bit":
             raise ValueError("not implemented")
         return reverse_hash(khash, self._ksize)
 
     def _encode(self, sequence):
         """A raw sequence as this table's hash reads it: 2-bit codes, or
-        ASCII bytes for murmur (khmer_tpu/hashtable.py:999-1003)."""
-        if self.hash_kind == "murmur":
-            return _ascii(sequence)
-        return enc.encode_sequence(sequence)
+        ASCII bytes for murmur and cyclic (khmer_tpu/hashtable.py:
+        999-1003)."""
+        if self.hash_kind == "2bit":
+            return enc.encode_sequence(sequence)
+        return _ascii(sequence)
 
     def _lanes(self, sequence):
         """(hashes, weights) device lanes of every window of a raw
         sequence; for the 2-bit hash the last k-1 lanes carry weight 0,
-        for murmur there is one lane a window (K8, the full complement
-        table, as khmer_tpu's _hash_array)."""
+        for murmur and cyclic there is one lane a window (K8 with the
+        full complement table, or K11, as khmer_tpu's _hash_array)."""
         codes = torch.from_numpy(self._encode(sequence)).to(self.device)
-        if self.hash_kind == "murmur":
-            h = murmur_window_hashes(codes, self._ksize)
-            return h, torch.ones_like(h, dtype=torch.int32)
-        return chunk_hashes(codes, torch.ones_like(codes), self._ksize)
+        if self.hash_kind == "2bit":
+            return chunk_hashes(codes, torch.ones_like(codes), self._ksize)
+        h = self._window_hashes(codes)
+        return h, torch.ones_like(h, dtype=torch.int32)
+
+    def _window_hashes(self, byts, assume_acgt=False):
+        """The byte hash (murmur or cyclic) of every window of one flat
+        tensor of ASCII bytes; assume_acgt picks murmur's bulk-consume
+        complement and is ignored by the cyclic hash, as in khmer_tpu."""
+        if self.hash_kind == "cyclic":
+            return cyclic_window_hashes(byts, self._ksize)
+        return murmur_window_hashes(byts, self._ksize, assume_acgt)
 
     def _chunk_lanes(self, codes, mask):
         """(hashes, weights) of the windows of a flat chunk of cleaned
         2-bit codes with the loader's window mask, lane i the window at
-        position i: K1, or for murmur K8 over the chunk's ASCII bytes
-        with the bulk-consume complement (khmer_tpu/hashtable.py:
+        position i: K1, or for murmur and cyclic K8 (with the
+        bulk-consume complement) or K11 over the chunk's codes decoded to
+        uppercase ASCII (khmer_tpu/hashtable.py: _decode_codes,
         _chunk_hashes_weights), one lane for each window that ends inside
         the chunk."""
-        k = self._ksize
-        if self.hash_kind != "murmur":
-            return chunk_hashes(codes, mask, k)
+        if self.hash_kind == "2bit":
+            return chunk_hashes(codes, mask, self._ksize)
         ascii = _CODE_ASCII.to(codes.device)[codes.to(torch.int64)]
-        h = murmur_window_hashes(ascii, k, assume_acgt=True)
+        h = self._window_hashes(ascii, assume_acgt=True)
         return h, mask[:h.numel()].to(torch.int32)
 
     def _hash_array(self, sequence):
@@ -625,8 +642,8 @@ class Hashtable:
         """One batch step of normalize-by-median or trim-low-abund
         (khmer_tpu/hashtable.py:_make_diginorm_fn, _make_trim_pass1_fn):
         the bundles' rows (pairs, a missing mate an empty row that is not
-        real) padded as khmer_tpu pads them, K1 hashes, in-batch ids
-        (_batch_ids), K3 reads the distinct k-mers' counts before the
+        real) padded as khmer_tpu pads them, K1 (K8, K11) hashes, in-batch
+        ids (_batch_ids), K3 reads the distinct k-mers' counts before the
         batch, and `chain(ids, valid, real, pre)` (K6 or K7) returns the
         bundles' flags, a bool [B] of the bundles whose k-mers it tallied,
         and the tally.  The tally then goes into the sketch in one K2
@@ -640,8 +657,9 @@ class Hashtable:
                                    encode=self._encode)
         realarr = np.zeros(codes.shape[0], np.uint8)
         realarr[:real.size] = real
-        hash_rows = kernels.murmur_hashes if self.hash_kind == "murmur" \
-            else kmer_hashes_2bit
+        hash_rows = {"murmur": kernels.murmur_hashes,
+                     "cyclic": kernels.cyclic_hashes}.get(self.hash_kind,
+                                                          kmer_hashes_2bit)
         h, valid = hash_rows(self._upload(codes), self._upload(lengths),
                              self._ksize)
         ids, keys = _batch_ids(h, valid)
@@ -886,6 +904,24 @@ class Counttable(Hashtable):
     khmer_tpu/hashtable.py:1853."""
 
     storage_class = ByteStorage
+    hash_kind = "murmur"
+
+
+class CyclicCounttable(Hashtable):
+    """Count-Min sketch over the cyclic (rolling) hash (graphs.pyx:477-491;
+    k <= 255): khmer_tpu/hashtable.py:1860.  Its hashes equal the
+    reference's CyclicHash<uint64>-based `_hash_cyclic`; every window is
+    computed in closed form (ops/rollinghash.py, kernel K11)."""
+
+    storage_class = ByteStorage
+    hash_kind = "cyclic"
+
+
+class SmallCounttable(Hashtable):
+    """4-bit Count-Min sketch over the murmur hash (counts read at cap
+    15): khmer_tpu/hashtable.py:2084."""
+
+    storage_class = NibbleStorage
     hash_kind = "murmur"
 
 

@@ -1,7 +1,8 @@
 """OXLI binary table files -- byte-exact save/load.
 
-Port of khmer_tpu/io/oxli_format.py:109-283 for the byte (Countgraph)
-and bit (Nodegraph) kinds.  All integers little-endian:
+Port of khmer_tpu/io/oxli_format.py:109-283 for the byte (Countgraph),
+nibble (SmallCountgraph) and bit (Nodegraph) kinds.  All integers
+little-endian:
 
 Countgraph (SAVED_COUNTING_HT=1):
   "OXLI" | u8 version=4 | u8 type | u8 use_bigcount | u32 ksize |
@@ -11,6 +12,11 @@ Countgraph (SAVED_COUNTING_HT=1):
 Nodegraph (SAVED_HASHBITS=2):
   "OXLI" | u8 version=4 | u8 type | u32 ksize | u8 n_tables |
   u64 occupied | per table: u64 size_bits + (size//8+1) bytes
+
+SmallCountgraph (SAVED_SMALLCOUNT=7): the Nodegraph header (no bigcount
+byte, no bigcount section); per table: u64 size + (size//2+1) bytes,
+two 4-bit counts a byte, the even bin in the high nibble, and a
+trailing pad nibble
 
 Tagset / stoptags (SAVED_TAGS=3 / SAVED_STOPTAGS=4; khmer_tpu/io/
 oxli_format.py:285-318):
@@ -27,6 +33,7 @@ import struct
 import numpy as np
 
 from khmer_tpu_torch._config import DEFAULT_TAG_DENSITY
+from khmer_tpu_torch.ops.sketch_ops import SketchSpec
 
 SAVED_SIGNATURE = b"OXLI"
 SAVED_FORMAT_VERSION = 4
@@ -35,6 +42,7 @@ SAVED_HASHBITS = 2
 SAVED_TAGS = 3
 SAVED_STOPTAGS = 4
 SAVED_SUBSET = 5
+SAVED_SMALLCOUNT = 7
 
 FILETYPES = {
     "COUNTING_HT": SAVED_COUNTING_HT,
@@ -43,11 +51,13 @@ FILETYPES = {
     "STOPTAGS": SAVED_STOPTAGS,
     "SUBSET": SAVED_SUBSET,
     "LABELSET": 6,
-    "SMALLCOUNT": 7,
+    "SMALLCOUNT": SAVED_SMALLCOUNT,
     "QFCOUNT": 8,
 }
 
-_KINDS = {SAVED_COUNTING_HT: "byte", SAVED_HASHBITS: "bit"}
+_KINDS = {SAVED_COUNTING_HT: "byte", SAVED_HASHBITS: "bit",
+          SAVED_SMALLCOUNT: "nibble"}
+_TYPES = {kind: ht_type for ht_type, kind in _KINDS.items()}
 
 
 class OxliFileError(OSError):
@@ -82,7 +92,7 @@ def _read_exact(f, n, filename):
 
 
 def save_storage(filename, ksize, storage):
-    """Save a Byte/Bit storage in OXLI format."""
+    """Save a Byte/Nibble/Bit storage in OXLI format."""
     kind = storage.kind
     raw = storage.raw_bytes()
     sizes = storage.spec.tablesizes
@@ -94,7 +104,7 @@ def save_storage(filename, ksize, storage):
                                 SAVED_COUNTING_HT,
                                 1 if storage.get_use_bigcount() else 0))
         else:
-            f.write(struct.pack("BB", SAVED_FORMAT_VERSION, SAVED_HASHBITS))
+            f.write(struct.pack("BB", SAVED_FORMAT_VERSION, _TYPES[kind]))
         f.write(struct.pack("<IBQ", int(ksize), len(sizes),
                             storage.n_occupied()))
         off = 0
@@ -112,8 +122,8 @@ def save_storage(filename, ksize, storage):
 
 
 def load_storage(filename, expected_kind, device=None):
-    """Load an OXLI table file of the expected kind ('byte' or 'bit');
-    returns (storage, ksize)."""
+    """Load an OXLI table file of the expected kind ('byte', 'nibble' or
+    'bit'); returns (storage, ksize)."""
     try:
         return _load_storage(filename, expected_kind, device)
     except EOFError as err:
@@ -123,7 +133,7 @@ def load_storage(filename, expected_kind, device=None):
 
 
 def _load_storage(filename, expected_kind, device):
-    from khmer_tpu_torch.storage import BitStorage, ByteStorage
+    from khmer_tpu_torch.storage import BY_KIND
 
     with _open_in(filename) as f:
         sig = _read_exact(f, 4, filename)
@@ -154,11 +164,10 @@ def _load_storage(filename, expected_kind, device):
         for _ in range(n_tables):
             (size,) = struct.unpack("<Q", _read_exact(f, 8, filename))
             sizes.append(size)
-            nbytes = size if kind == "byte" else size // 8 + 1
+            nbytes = SketchSpec(kind, (size,)).bytes_per_table[0]
             chunks.append(np.frombuffer(
                 _read_exact(f, nbytes, filename), dtype=np.uint8))
-        cls = ByteStorage if kind == "byte" else BitStorage
-        store = cls(sizes, device=device)
+        store = BY_KIND[kind](sizes, device=device)
         store.set_raw_bytes(np.concatenate(chunks), occupied)
         if kind == "byte":
             store.set_use_bigcount(bool(use_bigcount))

@@ -23,11 +23,13 @@ from khmer_tpu_torch.kernels import _build, plain
 
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
-           "trim_chain", "murmur_hashes", "hll_update", "cc_rounds")
+           "trim_chain", "murmur_hashes", "hll_update", "cc_rounds",
+           "cyclic_hashes")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-# row_counts' launches by hash kind (its 2-bit and murmur variants)
-ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0}
+# row_counts' launches by hash kind (its 2-bit, murmur and cyclic variants)
+ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0, "cyclic": 0}
 MURMUR_MAX_K = 255  # csrc/murmur.cuh kMaxK
+CYCLIC_MAX_K = 255  # csrc/cyclic.cuh kMaxK
 # sketch_update is the partitioned update of csrc/sketch.cu: count,
 # bucket scan, bucket, partition count, two scan launches, place, apply,
 # hot and finish; cc_rounds launches CC_KERNELS_PER_ROUND a round
@@ -244,14 +246,16 @@ def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
     rows, uint8 [B, L] with lengths int32 [B] (each <= L): 2-bit codes and
     1 <= k <= 32 for hash_kind "2bit", ASCII bytes and 1 <= k <= 255 for
     "murmur" (the hash of murmur_hashes with khmer's full complement
-    table).  Returns (uint16 counts [B, W], capped at cap, 0 for a window
-    that runs past its row's length; int64 hashes [B, W] when
-    want_hashes, else None), W = L - k + 1; see csrc/rows.cu."""
+    table) and "cyclic" (K5c, the hash of cyclic_hashes).  Returns
+    (uint16 counts [B, W], capped at cap, 0 for a window that runs past
+    its row's length; int64 hashes [B, W] when want_hashes, else None),
+    W = L - k + 1; see csrc/rows.cu."""
     dev = table.device
     _check_geometry(table, sizes, offsets, recips)
     _check("codes", codes, torch.uint8, dev)
     _check("lengths", lengths, torch.int32, dev)
-    kmax = {"2bit": 32, "murmur": MURMUR_MAX_K}.get(hash_kind)
+    kmax = {"2bit": 32, "murmur": MURMUR_MAX_K,
+            "cyclic": CYCLIC_MAX_K}.get(hash_kind)
     if kmax is None:
         raise ValueError("row_counts: unknown hash kind {!r}".format(
             hash_kind))
@@ -273,8 +277,8 @@ def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
                 offsets.data_ptr(), recips.data_ptr(), int(cap),
                 counts.data_ptr(),
                 hashes.data_ptr() if want_hashes else None,
-                entry="khmer_row_counts" + ("_murmur" if hash_kind ==
-                                            "murmur" else ""))
+                entry="khmer_row_counts" + ("" if hash_kind == "2bit" else
+                                            "_" + hash_kind))
         ROW_COUNTS_BY_HASH[hash_kind] += 1
     return counts, hashes
 
@@ -304,6 +308,32 @@ def murmur_hashes(byts, lengths, k, assume_acgt=False):
     if B:
         _launch("murmur_hashes", byts.data_ptr(), B, L, k, int(assume_acgt),
                 hashes.data_ptr())
+    return hashes, plain.window_valid(lengths, W, k)
+
+
+def cyclic_hashes(byts, lengths, k):
+    """K11: canonical cyclic hash (khmer_tpu/ops/rollinghash.py: the XOR
+    of the window's rotated table entries plus that of its reverse
+    strand, mod 2**64) of every window of a padded batch of ASCII rows,
+    byts uint8 [B, L] with lengths int32 [B], 1 <= k <= 255.  Every byte
+    has its own table entry; only A, C, G and T (either case) are
+    complemented.  Returns (int64 hashes [B, W], bool valid [B, W]: the
+    window ends inside its row's length), W = L - k + 1; a window that is
+    not valid still hashes the bytes it covers.  See csrc/cyclic.cu."""
+    dev = byts.device
+    _check("byts", byts, torch.uint8, dev)
+    _check("lengths", lengths, torch.int32, dev)
+    if byts.dim() != 2 or lengths.shape != byts.shape[:1] or \
+            not 1 <= k <= CYCLIC_MAX_K or byts.shape[1] < k:
+        raise ValueError("cyclic_hashes: need byts [B, L >= k], lengths [B] "
+                         "and 1 <= k <= {}".format(CYCLIC_MAX_K))
+    if dev.type != "cuda":
+        return plain.cyclic_hashes(byts, lengths, k)
+    B, L = byts.shape
+    W = L - k + 1
+    hashes = torch.empty((B, W), dtype=torch.int64, device=dev)
+    if B:
+        _launch("cyclic_hashes", byts.data_ptr(), B, L, k, hashes.data_ptr())
     return hashes, plain.window_valid(lengths, W, k)
 
 

@@ -19,7 +19,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("hash2bit", "sketch", "abund", "rows", "chain", "murmur", "hll",
-           "cc")
+           "cc", "cyclic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -38,7 +38,10 @@ SIGNATURES = {
                          _P),
     "khmer_row_counts_murmur": (_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _U,
                                 _P, _P, _P),
+    "khmer_row_counts_cyclic": (_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _U,
+                                _P, _P, _P),
     "khmer_murmur_hashes": (_P, _LL, _I, _I, _I, _P, _P),
+    "khmer_cyclic_hashes": (_P, _LL, _I, _I, _P, _P),
     "khmer_hll_update": (_P, _P, _LL, _I, _I, _U, _P, _P),
     "khmer_cc_rounds": (_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P),
     "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P, _LL,

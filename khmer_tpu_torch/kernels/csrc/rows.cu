@@ -29,12 +29,19 @@
 // MurmurHash3_x64_128s of k bytes instead of O(1); the gather and the
 // stores are the same.
 //
+// The cyclic variant K5c (hash_kind "cyclic", khmer_tpu's same functions
+// over kmer_hashes_cyclic_bytes, ASCII rows, 1 <= k <= 255) fuses K11's
+// hash (cyclic.cuh) with the same gather: the block stages each byte's two
+// table entries, and each window costs 2k shared loads, rotations and
+// XORs.
+//
 // Bound: the larger of its bytes and its random sectors.  Bytes: per lane
 // 1 (code) read and 2 (count) written, 8 more with hashes, 4 (length) a
 // row; and the T 4-byte bins of each valid window, each a random 32-byte
 // sector of a table far larger than L2.  chip_smoke.py counts the bytes
 // with each bin read once.
 
+#include "cyclic.cuh"
 #include "murmur.cuh"
 #include "twobit.cuh"
 
@@ -76,6 +83,22 @@ struct MurmurTile {
     }
     __device__ __forceinline__ u64 hash(int o, int k) const {
         return murmur::canonical(fwd, comp, murmur::kPad + o, k);
+    }
+};
+
+// The cyclic hash from each byte's staged table entries (cyclic.cuh)
+struct CyclicTile {
+    static constexpr int kPos = kRowLanes + cyclic::kMaxK - 1;
+    u64 tab[2][256];
+    u64 fwd[kPos];
+    u64 rev[kPos];
+
+    __device__ __forceinline__ void stage(const uint8_t* byts, long long n,
+                                          long long base, int k, bool) {
+        cyclic::stage(byts, n, base, kRowLanes + k - 1, tab, fwd, rev);
+    }
+    __device__ __forceinline__ u64 hash(int o, int k) const {
+        return cyclic::window(fwd, rev, o, k);
     }
 };
 
@@ -191,6 +214,19 @@ extern "C" int khmer_row_counts_murmur(const void* byts, const void* lengths,
                                        void* counts, void* hashes,
                                        void* stream) {
     return dispatch<MurmurTile>(byts, lengths, B, L, k, murmur::kMaxK, table,
+                                T, sizes, offs, recips, cap, counts, hashes,
+                                stream);
+}
+
+// the cyclic variant: byts is [B, L] u8 ASCII, 1 <= k <= 255
+extern "C" int khmer_row_counts_cyclic(const void* byts, const void* lengths,
+                                       long long B, int L, int k,
+                                       const void* table, int T,
+                                       const void* sizes, const void* offs,
+                                       const void* recips, unsigned cap,
+                                       void* counts, void* hashes,
+                                       void* stream) {
+    return dispatch<CyclicTile>(byts, lengths, B, L, k, cyclic::kMaxK, table,
                                 T, sizes, offs, recips, cap, counts, hashes,
                                 stream);
 }

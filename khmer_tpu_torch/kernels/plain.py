@@ -14,6 +14,7 @@ import torch
 from khmer_tpu_torch import _u64
 from khmer_tpu_torch._config import MAX_KCOUNT
 from khmer_tpu_torch.ops.encode import COMP_LUT
+from khmer_tpu_torch.ops.rollinghash import _COMP_TABLE, _CYCLIC_TABLE
 
 
 def hash2bit_canonical(codes, mask, k):
@@ -111,14 +112,16 @@ def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
                want_hashes=False, hash_kind="2bit"):
     """Canonical hash and count (capped at cap) of every window of a
     padded [B, L] batch of codes (2-bit codes, or ASCII bytes for
-    hash_kind "murmur") with lengths[B]: (uint16 counts [B, W], 0 where
-    the window runs past its row's length, and int64 hashes [B, W] or
-    None), W = L - k + 1.  The 2-bit batch hashes as one flat stream, so
-    every window reads the codes the kernel reads."""
+    hash_kind "murmur" and "cyclic") with lengths[B]: (uint16 counts
+    [B, W], 0 where the window runs past its row's length, and int64
+    hashes [B, W] or None), W = L - k + 1.  The 2-bit batch hashes as
+    one flat stream, so every window reads the codes the kernel reads."""
     B, L = codes.shape
     W = L - k + 1
     if hash_kind == "murmur":
         h, valid = murmur_hashes(codes, lengths, k)
+    elif hash_kind == "cyclic":
+        h, valid = cyclic_hashes(codes, lengths, k)
     else:
         col = torch.arange(L, device=codes.device)
         valid = (col[None, :] + k <= lengths[:, None].to(torch.int64)) & \
@@ -208,6 +211,36 @@ def murmur_hashes(byts, lengths, k, assume_acgt=False):
     same = (f1 == r1) & (f2 == r2)
     return (torch.where(same, f1, f1 ^ r1).contiguous(),
             window_valid(lengths, W, k))
+
+
+# the cyclic hash's character table T and its complement C[c] =
+# T[comp(c)], as int64 bit patterns
+_CYCLIC_T = torch.from_numpy(_CYCLIC_TABLE.view(np.int64))
+_CYCLIC_C = torch.from_numpy(_COMP_TABLE.view(np.int64))
+
+
+def _rotl_mod64(x, r):
+    """x rotated left by r mod 64 bits (r = 0 leaves it)."""
+    r %= 64
+    return _u64.rotl(x, r) if r else x
+
+
+def cyclic_hashes(byts, lengths, k):
+    """Canonical cyclic hash of every window of ASCII rows [B, L]:
+    XOR_j rotl(T[s[j]], k - 1 - j) plus XOR_j rotl(C[s[j]], j), wrapping
+    mod 2**64 (the int64 add wraps as uint64's does).  Returns (int64
+    [B, W], bool valid [B, W])."""
+    W = byts.shape[1] - k + 1
+    idx = byts.to(torch.int64)
+    tf = _CYCLIC_T.to(byts.device)[idx]
+    tr = _CYCLIC_C.to(byts.device)[idx]
+    h = torch.zeros((byts.shape[0], W), dtype=torch.int64,
+                    device=byts.device)
+    r = torch.zeros_like(h)
+    for j in range(k):
+        h ^= _rotl_mod64(tf[:, j:j + W], k - 1 - j)
+        r ^= _rotl_mod64(tr[:, j:j + W], j)
+    return h + r, window_valid(lengths, W, k)
 
 
 def hll_update(byts, weights, k, p, m, registers):

@@ -428,8 +428,8 @@ def create_nodegraph(args, ksize=None, multiplier=1.0, fp_rate=0.01,
 
 def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
                       device=None):
-    """Create a Countgraph per the CLI args on `device`
-    (khmer_args.py:599-637)."""
+    """Create a Countgraph, or a SmallCountgraph under --small-count, per
+    the CLI args on `device` (khmer_args.py:599-637)."""
     args = _check_fp_rate(args, fp_rate)
     _check_n_tables(args)
     if ksize is None:
@@ -444,11 +444,14 @@ def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
         sys.exit(1)
 
     if getattr(args, 'small_count', False):
-        not_ported("--small-count (SmallCountgraph)", "slice 3b")
+        tabletype, tableclass = 'smallcountgraph', khmer.SmallCountgraph
+    else:
+        tabletype, tableclass = 'countgraph', khmer.Countgraph
 
-    tablesize = calculate_graphsize(args, 'countgraph', multiplier=multiplier)
-    cg = khmer.Countgraph(ksize, tablesize, args.n_tables, device=device)
-    if hasattr(args, 'bigcount'):
+    tablesize = calculate_graphsize(args, tabletype, multiplier=multiplier)
+    cg = tableclass(ksize, tablesize, args.n_tables, device=device)
+    # NibbleStorage has no bigcount (khmer_tpu/khmer_args.py:472)
+    if hasattr(args, 'bigcount') and tabletype == 'countgraph':
         cg.set_use_bigcount(args.bigcount)
     return cg
 
@@ -456,9 +459,9 @@ def create_countgraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
 def create_counttable(args, ksize=None, multiplier=1.0, fp_rate=0.1,
                       device=None):
     """Create the table khmer_tpu's create_counttable makes for these CLI
-    args (khmer_args.py:640-680), on `device`: a Countgraph, or a
-    Counttable for -H murmur (any k up to 255).  --small-count
-    (SmallCountgraph) exits with an error until its slice is ported."""
+    args (khmer_args.py:640-680), on `device`: a Countgraph, a Counttable
+    for -H murmur (any k up to 255), or a SmallCountgraph under
+    --small-count (which -H murmur refuses)."""
     args = _check_fp_rate(args, fp_rate)
     _check_n_tables(args)
     if ksize is None:
@@ -480,7 +483,10 @@ def create_counttable(args, ksize=None, multiplier=1.0, fp_rate=0.1,
             print_error("\n** ERROR: hash function 'murmur' does not "
                         "support small counts yet.")
             sys.exit(1)
-        not_ported("--small-count (SmallCountgraph)", "slice 3b")
+        tablesize = calculate_graphsize(args, 'smallcountgraph',
+                                        multiplier=multiplier)
+        return khmer.SmallCountgraph(ksize, tablesize, args.n_tables,
+                                     device=device)
 
     if hash_function == 'murmur':
         tabletype, tableclass = 'counttable', khmer.Counttable

@@ -15,8 +15,10 @@ batched 2-bit hash is kernel K1 (kernels/csrc/hash2bit.cu), which emits
 the windows of a flat code chunk in stream order; the TPU kernel's
 u32-pair arithmetic and phase-major lane order are not ported.  The
 batched murmur hash is kernel K8 (kernels/csrc/murmur.cu), over padded
-ASCII rows or one flat chunk.  Kernel K5 (kernels/csrc/rows.cu) hashes
-padded rows with either hash and reads their counts in the same pass.
+ASCII rows or one flat chunk, and the batched cyclic hash
+(ops/rollinghash.py) kernel K11 (kernels/csrc/cyclic.cu), over the same
+two shapes.  Kernel K5 (kernels/csrc/rows.cu) hashes padded rows with
+any of the three hashes and reads their counts in the same pass.
 """
 
 import numpy as np
@@ -175,6 +177,18 @@ def murmur_window_hashes(byts, k: int, assume_acgt=False):
     return kernels.murmur_hashes(byts[None, :], lengths, k, assume_acgt)[0][0]
 
 
+def cyclic_window_hashes(byts, k: int):
+    """Canonical cyclic hashes of every window of one flat uint8 tensor of
+    ASCII bytes, int64 [n - k + 1] (empty when n < k), in one K11 call:
+    khmer_tpu/ops/rollinghash.py:kmer_hashes_cyclic_bytes over a single
+    row."""
+    n = byts.numel()
+    if n < k:
+        return torch.zeros(0, dtype=torch.int64, device=byts.device)
+    lengths = torch.full((1,), n, dtype=torch.int32, device=byts.device)
+    return kernels.cyclic_hashes(byts[None, :], lengths, k)[0][0]
+
+
 def chunk_hashes(codes, mask, k: int):
     """Canonical hashes and weights of every window start of a flat
     chunk (uint8 codes and loader mask, one tensor each): the port of
@@ -211,9 +225,9 @@ def kmer_hashes_2bit(codes, lengths, k: int):
 def row_hashes_counts(codes, lengths, k: int, geom, table, cap,
                       want_hashes=False, hash_kind="2bit"):
     """Counts (and on request hashes) of every window of a padded [B, L]
-    uint8 tensor (2-bit codes, or ASCII bytes for hash_kind "murmur")
-    with int32 lengths[B], read from a sketch (flat table and its
-    geometry) capped at cap, in one pass of kernel K5: the port of
+    uint8 tensor (2-bit codes, or ASCII bytes for hash_kind "murmur" and
+    "cyclic") with int32 lengths[B], read from a sketch (flat table and
+    its geometry) capped at cap, in one pass of kernel K5: the port of
     khmer_tpu/hashtable.py:_make_row_hashes_counts_fn and
     _make_row_counts_fn.  Returns (uint16 counts [B, W], int64 hashes
     [B, W] or None, bool valid [B, W]), W = L - k + 1; a count is 0

@@ -8,11 +8,14 @@ uint32 counter per bin and applies its saturation only when reading:
 because saturating increments commute.  The update is then a plain
 wrap-free add, and reads, saves and merges stay bit-exact with the
 reference (ByteStorage::add, reference include/oxli/storage.hh:575-628;
-BitStorage::test_and_set_bits, storage.hh:176-203).
+NibbleStorage::add, storage.hh:324-363; BitStorage::test_and_set_bits,
+storage.hh:176-203).
 
 The device work is kernels K2 (sketch_update) and K3 (sketch_get); the
-save layout is a host numpy mirror of khmer_tpu's (:290-360), and a load
-widens the raw bytes on the device through bin_scatter_add.
+save layout (one byte a bin; two bins a byte for nibble, eight for bit)
+is packed on the device for byte and nibble and on the host for bit,
+with a host numpy mirror of khmer_tpu's (:290-360), and a load widens
+the raw bytes on the device through bin_scatter_add.
 """
 
 from dataclasses import dataclass
@@ -24,6 +27,7 @@ from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import BIN_DTYPE, MAX_KCOUNT
 
 BIGCOUNT_CAP = 65535
+NIBBLE_CAP = 15  # the nibble kind's read cap (reference storage.hh:258)
 # per-batch candidate budget for bigcount tracking; a batch that
 # overflows it is recovered exactly from the batch (storage.py)
 BIGCOUNT_LANES = 1 << 16
@@ -33,7 +37,7 @@ BIGCOUNT_LANES = 1 << 16
 class SketchSpec:
     """Static geometry of a sketch."""
 
-    kind: str  # 'byte' | 'bit'
+    kind: str  # 'byte' | 'nibble' | 'bit'
     tablesizes: tuple  # bins per table
 
     @property
@@ -58,6 +62,8 @@ class SketchSpec:
         """OXLI on-disk bytes per table (reference storage.cc layouts)."""
         if self.kind == "byte":
             return tuple(int(s) for s in self.tablesizes)
+        if self.kind == "nibble":
+            return tuple(int(s) // 2 + 1 for s in self.tablesizes)
         if self.kind == "bit":
             return tuple(int(s) // 8 + 1 for s in self.tablesizes)
         raise ValueError(self.kind)
@@ -125,15 +131,32 @@ def occupied_bins(spec, table):
 # ---------------------------------------------------------------------------
 
 
+def _saturated(t, cap):
+    """u32 bins (int32 bit patterns) capped at cap: bins >= 2**31 are
+    negative patterns, saturated too."""
+    return torch.where((t < 0) | (t > cap), cap, t)
+
+
 def pack_oxli_bytes(spec, table):
     """Working table -> OXLI on-disk byte stream (host numpy).  The
-    per-bin cap runs on the table's device, so only one byte per bin
-    crosses to the host."""
+    per-bin cap, and for the nibble kind the packing of two bins a byte,
+    run on the table's device, so only the stream's bytes (one a bin,
+    one per two bins for nibble) cross to the host."""
     t = table[: spec.total_bins]
     if spec.kind == "byte":
-        # bins >= 2**31 are negative int32 patterns: saturated too
-        vals = torch.where((t < 0) | (t > MAX_KCOUNT), MAX_KCOUNT, t)
-        return vals.to(torch.uint8).cpu().numpy()
+        return _saturated(t, MAX_KCOUNT).to(torch.uint8).cpu().numpy()
+    if spec.kind == "nibble":
+        vals = _saturated(t, NIBBLE_CAP).to(torch.uint8)
+        outs = []
+        for size, off, nb in zip(spec.tablesizes, spec.bin_offsets,
+                                 spec.bytes_per_table):
+            pair = torch.zeros(2 * nb, dtype=torch.uint8, device=t.device)
+            pair[:size] = vals[off: off + size]
+            pair = pair.view(nb, 2)
+            # even bin -> high nibble, odd -> low (storage.hh:268-276),
+            # and a trailing pad nibble
+            outs.append((pair[:, 0] << 4) | pair[:, 1])
+        return torch.cat(outs).cpu().numpy()
     full = (t != 0).to(torch.uint8).cpu().numpy()
     return host_pack_oxli_bytes(spec, full)
 
@@ -147,6 +170,12 @@ def host_pack_oxli_bytes(spec, table):
         vals = table[off: off + size]
         if spec.kind == "byte":
             outs.append(np.minimum(vals, 255).astype(np.uint8))
+        elif spec.kind == "nibble":
+            nb = size // 2 + 1
+            padded = np.zeros(nb * 2, np.uint32)
+            padded[:size] = np.minimum(vals, NIBBLE_CAP)
+            pair = padded.reshape(nb, 2)
+            outs.append((pair[:, 1] | (pair[:, 0] << 4)).astype(np.uint8))
         else:  # bit
             nb = size // 8 + 1
             padded = np.zeros(nb * 8, np.uint8)
@@ -161,7 +190,8 @@ def unpack_oxli_bytes(spec, data, device):
 
     Only the raw bytes cross to the device.  There the occupied bins are
     found (a nonzero byte, or a set bit for the bit kind) and added into
-    a zeroed table with bin_scatter_add, which widens them to u32."""
+    a zeroed table with bin_scatter_add, which widens them to u32 (for
+    the nibble kind, each byte's two nibbles, the high one first)."""
     data = np.ascontiguousarray(data, np.uint8)
     if not data.flags.writeable:  # torch.from_numpy wants a writable array
         data = data.copy()
@@ -170,6 +200,18 @@ def unpack_oxli_bytes(spec, data, device):
         # byte t of the stream is bin t: the tables lie back to back
         idx = torch.nonzero(raw).squeeze(1)
         vals = raw[idx].to(torch.int32)
+    elif spec.kind == "nibble":
+        parts = []
+        boff = 0
+        for size, off, nb in zip(spec.tablesizes, spec.bin_offsets,
+                                 spec.bytes_per_table):
+            b = raw[boff: boff + nb]
+            bins = torch.stack([b >> 4, b & 15], 1).reshape(-1)[:size]
+            parts.append(bins)
+            boff += nb
+        bins = torch.cat(parts)
+        idx = torch.nonzero(bins).squeeze(1)
+        vals = bins[idx].to(torch.int32)
     else:  # bit
         shifts = torch.arange(8, dtype=torch.uint8, device=device)
         parts = []

@@ -29,7 +29,7 @@ import numpy as np
 
 import khmer_tpu_torch as khmer
 from khmer_tpu_torch import khmer_args
-from khmer_tpu_torch.graph import Countgraph
+from khmer_tpu_torch.graph import Countgraph, SmallCountgraph
 from khmer_tpu_torch.io.fastx import FastxReader as ReadParser
 from khmer_tpu_torch.khmer_args import (FileType as khFileType,
                                         add_loadgraph_args,
@@ -320,10 +320,8 @@ def main(argv=None, device=None, batch=BATCH):
 
     if args.loadgraph:
         log_info('loading countgraph from {graph}', graph=args.loadgraph)
-        if args.small_count:
-            khmer_args.not_ported("--small-count (SmallCountgraph)",
-                                  "slice 3")
-        ct = Countgraph.load(args.loadgraph, device=device)
+        table_class = SmallCountgraph if args.small_count else Countgraph
+        ct = table_class.load(args.loadgraph, device=device)
     elif args.mqf:
         khmer_args.not_ported("--mqf (MQF tables)", "slice 5")
     else:

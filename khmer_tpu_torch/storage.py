@@ -1,6 +1,7 @@
 """Storage layer: device-resident sketches with khmer Storage semantics.
 
-Port of khmer_tpu/storage.py:42-347 (ByteStorage and BitStorage).  Each
+Port of khmer_tpu/storage.py:42-353 (ByteStorage, NibbleStorage and
+BitStorage).  Each
 storage is ONE flat uint32 working array on its device, updated by
 kernel K2 per batch; each kind's saturation cap is applied at read
 time, which equals the reference's saturating increments (see
@@ -21,6 +22,7 @@ from khmer_tpu_torch import _u64
 from khmer_tpu_torch._config import MAX_BIGCOUNT, MAX_KCOUNT, resolve_device
 from khmer_tpu_torch.ops.sketch_ops import (
     BIGCOUNT_CAP,
+    NIBBLE_CAP,
     SketchSpec,
     alloc_table,
     occupied_bins,
@@ -80,10 +82,11 @@ class Storage:
 
     def read_cap(self):
         """Read cap under the current bigcount toggle: 65535 or 255 for
-        counts, 1 for presence (reference MAX_KCOUNT, oxli.hh:81)."""
+        byte counts (reference MAX_KCOUNT, oxli.hh:81), 15 for nibble
+        counts (storage.hh:258), 1 for presence."""
         if self.kind == "byte":
             return BIGCOUNT_CAP if self._use_bigcount else MAX_KCOUNT
-        return 1
+        return NIBBLE_CAP if self.kind == "nibble" else 1
 
     def _counts_over_kcount(self, hashes):
         """The hashes (int64 tensor) whose uncapped count exceeds 255."""
@@ -200,3 +203,16 @@ class ByteStorage(Storage):
 
     kind = "byte"
     supports_bigcount = True
+
+
+class NibbleStorage(Storage):
+    """Count-Min sketch with 4-bit counters (storage.hh:249-409), over
+    the same u32 working table as ByteStorage, read at cap 15; no
+    bigcount."""
+
+    kind = "nibble"
+
+
+# storage class of each kind
+BY_KIND = {cls.kind: cls for cls in (ByteStorage, NibbleStorage,
+                                     BitStorage)}

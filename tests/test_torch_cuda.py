@@ -227,7 +227,7 @@ def test_barrett_bins_on_card(dev):
 
 @pytest.mark.parametrize("n,offset", [(3, 0), (777, 1), (16386, 0),
                                       (16386, 1)])
-@pytest.mark.parametrize("cap", [1, 255, 65535])
+@pytest.mark.parametrize("cap", [1, 15, 255, 65535])
 @pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 32])
 def test_sketch_get(dev, T, cap, n, offset):
     """T = 1-4 (the unrolled gather) and 5, 32 (the loop); n not a
@@ -287,6 +287,7 @@ K4_CASES = {
     "all-counts-zero": (_primes(4), _primes(4), 65535, 0.0),
     "shared-range-edge": (_primes(4), _primes(4), 65535, 0.0),
     "cap-1": (_primes(4), _primes(4), 1, 0.5),
+    "cap-15": (_primes(4), _primes(4), 15, 0.5),
     "cap-255": (_primes(4), _primes(4), 255, 0.5),
     "cap-65535": (_primes(4), _primes(4), 65535, 0.5),
     "one-table": (_primes(1), _primes(1), 65535, 0.5),
@@ -402,7 +403,7 @@ def test_bin_scatter_add_out_of_range(dev, bad):
     assert int(table.sum()) == 3
 
 
-@pytest.mark.parametrize("kind", ["byte", "bit"])
+@pytest.mark.parametrize("kind", ["byte", "nibble", "bit"])
 def test_unpack_oxli_bytes_on_card(dev, kind):
     """The .ct load's widening on the card equals the CPU's."""
     rng = np.random.default_rng(8)
@@ -908,7 +909,8 @@ def test_row_counts_murmur(dev, k, offset, T):
             assert torch.equal(c.cpu().to(torch.int32), pc.to(torch.int32))
             if want:
                 assert torch.equal(h.cpu(), ph)
-    assert kernels.ROW_COUNTS_BY_HASH == {"2bit": 0, "murmur": 4}
+    assert kernels.ROW_COUNTS_BY_HASH == {"2bit": 0, "murmur": 4,
+                                          "cyclic": 0}
 
 
 def test_sketch_ops_on_murmur_hashes(dev):
@@ -982,6 +984,127 @@ def test_murmur_tables_small_on_card(dev, tmp_path):
         assert torch.equal(a.cpu(), b)
     assert launches["murmur_hashes"] and launches["hll_update"] and \
         kernels.ROW_COUNTS_BY_HASH["murmur"]
+
+
+# --- slice 3b: K11 cyclic_hashes, K5c and the nibble tables --------------
+
+CYCLIC_KS = [1, 20, 63, 64, 65, 100, 255]
+CYCLIC_TILE = 256  # window starts per block of csrc/cyclic.cu
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("k", CYCLIC_KS)
+def test_cyclic_hashes(dev, k, offset):
+    """K11 on ragged rows (lengths 0, below k, k and L) of ASCII with
+    lowercase, N, IUPAC and other bytes, every window valid or not, at
+    widths L that are not a multiple of the tile; B = 0; then the flat
+    form of one row across many tiles."""
+    rng = np.random.default_rng(k * 10 + offset)
+    kernels.reset_launches()
+    for B, L in ((37, k + 70), (3, k), (0, k + 9),
+                 (1, 5 * CYCLIC_TILE + k + 3)):
+        buf, lengths = _ascii_rows(rng, B, L, k, offset)
+        byts = buf[offset:].view(B, L)
+        h, v = kernels.cyclic_hashes(buf.to(dev)[offset:].view(B, L),
+                                     lengths.to(dev), k)
+        ph, pv = plain.cyclic_hashes(byts, lengths, k)
+        assert h.shape == (B, L - k + 1)
+        assert torch.equal(h.cpu(), ph) and torch.equal(v.cpu(), pv)
+    assert (_u64.to_numpy(ph) >= 1 << 63).any()
+    assert kernels.LAUNCHES["cyclic_hashes"] == 3
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("k", CYCLIC_KS)
+@pytest.mark.parametrize("T", [1, 4, 5])
+def test_row_counts_cyclic(dev, k, offset, T):
+    """K5c on ragged ASCII rows with non-ACGT bytes, rows wider than a
+    block's tile at k = 255, caps 15, 255 and 65535, with and without
+    hashes; B = 0 launches nothing."""
+    rng = np.random.default_rng(k * 1000 + T + offset)
+    B, L = 211, 64 + k
+    buf, lengths = _ascii_rows(rng, B, L, k, offset)
+    sizes = _primes(T)
+    table = _table(rng, sizes, 400)
+    geom = SketchSpec("byte", sizes).geometry("cpu")
+    gdev = [g.to(dev) for g in geom]
+    byts = buf[offset:].view(B, L)
+    kernels.reset_launches()
+    for cap in (15, 255, 65535):
+        for want in (False, True):
+            c, h = kernels.row_counts(buf.to(dev)[offset:].view(B, L),
+                                      lengths.to(dev), k, table.to(dev),
+                                      *gdev, cap, want, "cyclic")
+            pc, ph = plain.row_counts(byts, lengths, k, table, *geom, cap,
+                                      want, "cyclic")
+            assert torch.equal(c.cpu().to(torch.int32), pc.to(torch.int32))
+            if want:
+                assert torch.equal(h.cpu(), ph)
+    c, _ = kernels.row_counts(buf.to(dev)[:0].view(0, L),
+                              lengths.to(dev)[:0], k, table.to(dev), *gdev,
+                              15, False, "cyclic")
+    assert c.shape == (0, L - k + 1)
+    assert kernels.ROW_COUNTS_BY_HASH == {"2bit": 0, "murmur": 0,
+                                          "cyclic": 6}
+
+
+def test_small_tables_on_card(dev, tmp_path):
+    """A SmallCountgraph and a SmallCounttable (consume_seqfile past the
+    cap of 15, count_rows, the normalize-by-median and trim-low-abund
+    batch steps, the histogram, the saved bytes and their load) and a
+    CyclicCounttable (consume_seqfile, count_rows, the batch steps, the
+    histogram, the saved bytes) on the card equal the CPU run on
+    generated reads; NibbleStorage refuses bigcount."""
+    from khmer_tpu_torch import (CyclicCounttable, Nodetable,
+                                 SmallCountgraph, SmallCounttable)
+
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, 9, repeats=30)
+    rng = np.random.default_rng(9)
+    genome = "".join(rng.choice(list("ACGT"), 8000))
+    reads = [genome[s:s + 100] for s in rng.integers(0, 7900, 1024)]
+    batches = [[(reads[2 * i], reads[2 * i + 1] if i % 9 else None)
+                for i in range(b * 256, (b + 1) * 256)] for b in range(2)]
+    out = []
+    kernels.reset_launches()
+    for d in (dev, "cpu"):
+        got = []
+        for cls, track in ((SmallCountgraph, Nodegraph),
+                           (SmallCounttable, Nodetable),
+                           (CyclicCounttable, Nodetable)):
+            ct = cls(20, 20011, 4, device=d)
+            got.append(torch.tensor(ct.consume_seqfile(fa)))
+            got += [torch.from_numpy(c.astype(np.int32))
+                    for c in ct.count_rows(reads[:50] + ["ACGTNacgt" * 8])]
+            got.append(torch.tensor(ct.abundance_distribution(
+                fa, track(20, 1, 1, primes=ct.hashsizes(), device=d))))
+            path = str(tmp_path / "{}-{}.ct".format(cls.__name__, d))
+            ct.save(path)
+            got.append(torch.from_numpy(np.fromfile(path, np.uint8)))
+            got.append(cls.load(path, device=d).storage.table.cpu())
+            dn = cls(20, 20011, 4, device=d)
+            tr = cls(20, 20011, 4, device=d)
+            for batch in batches:
+                got.append(dn.diginorm_batch(batch, 20).cpu())
+                got += [t.cpu() for t in tr.trim_pass1_batch(batch, 20, 8,
+                                                             2)]
+            for t in (ct, dn, tr):
+                got += [t.storage.table.cpu(),
+                        torch.tensor(t.n_unique_kmers())]
+            if cls is not CyclicCounttable:
+                assert int(got[-6].max()) > 15
+                with pytest.raises(ValueError, match="bigcount"):
+                    ct.set_use_bigcount(True)
+        out.append(got)
+        if d == dev:
+            launches = dict(kernels.LAUNCHES)
+            by_hash = dict(kernels.ROW_COUNTS_BY_HASH)
+    for a, b in zip(*out):
+        assert torch.equal(a.cpu(), b)
+    for name in ("cyclic_hashes", "sketch_get", "abund_hist",
+                 "bin_scatter_add", "diginorm_chain", "trim_chain"):
+        assert launches[name], name
+    assert by_hash["cyclic"] and by_hash["2bit"] and by_hash["murmur"]
 
 
 # ---------------------------------------------------------------------------

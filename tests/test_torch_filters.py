@@ -111,9 +111,17 @@ def test_filters_drop_and_trim(runs):
 def test_unported_tables_exit(tmp_path, capsys, flag):
     """Tables of later slices exit with an error that names the slice,
     before any read is parsed (-H murmur, once the first case, is ported
-    and held to khmer_tpu in tests/test_torch_counttable.py)."""
+    and held to khmer_tpu in tests/test_torch_counttable.py).
+    --small-count is ported since slice 3b (held to khmer_tpu in
+    tests/test_torch_smallcount.py): it runs and keeps every read here."""
     fa = str(tmp_path / "reads.fa")
     write_pairs(fa, n_pairs=4)
+    if flag == ["--small-count"]:
+        normalize_by_median.main(["-q", "-o", str(tmp_path / "o.fa")] +
+                                 flag + [fa], device="cpu")
+        assert "not ported" not in capsys.readouterr().err
+        assert open(tmp_path / "o.fa").read().count(">") == 8
+        return
     with pytest.raises(SystemExit) as exc:
         normalize_by_median.main(["-q", "-o", str(tmp_path / "o.fa")] +
                                  flag + [fa], device="cpu")

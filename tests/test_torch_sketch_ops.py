@@ -32,7 +32,7 @@ def _t(u32):
     return torch.from_numpy(np.ascontiguousarray(u32).view(np.int32).copy())
 
 
-@pytest.mark.parametrize("kind", ["byte", "bit"])
+@pytest.mark.parametrize("kind", ["byte", "nibble", "bit"])
 def test_sketch_update_match(kind):
     """Pre-filled table, a batch full of duplicates and masked lanes:
     table, n_unique, is_new and the bigcount candidates agree."""
@@ -91,7 +91,7 @@ def test_bigcount_overflow_recovers_exactly():
 
 @pytest.mark.parametrize("kind,use_bigcount,cap",
                          [("byte", True, 65535), ("byte", False, 255),
-                          ("bit", False, 1)])
+                          ("nibble", False, 15), ("bit", False, 1)])
 def test_sketch_get_match(kind, use_bigcount, cap):
     rng = np.random.default_rng(cap)
     table = rng.integers(0, 140000, sum(SIZES) + 1).astype(np.uint32)
@@ -129,21 +129,26 @@ def test_bin_scatter_add_matches_prototype_semantics():
             [1], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("kind", ["byte", "bit"])
+@pytest.mark.parametrize("kind", ["byte", "nibble", "bit"])
 @pytest.mark.parametrize("density", [0.001, 0.5])
 def test_oxli_pack_unpack_match(kind, density):
-    """Save layout bytes and the load widening (bin_scatter_add of the
-    occupied bins) agree, on sparse tables and dense ones."""
+    """Save layout bytes (packed on the table's device, and by the host
+    mirror) and the load widening (bin_scatter_add of the occupied bins)
+    agree, on sparse tables and dense ones, with bins at and past 2**31
+    (saturated: negative int32 patterns in the port)."""
     rng = np.random.default_rng(int(density * 1000) + len(kind))
     total = sum(SIZES)
     table = np.zeros(total + 1, np.uint32)
     occ = rng.random(total) < density
     table[:total][occ] = rng.integers(1, 300, occ.sum())
+    table[[5, SIZES[0] + 1]] = [2 ** 31, 2 ** 32 - 1]
     spec = jax_ops.SketchSpec(kind, SIZES)
     want = np.asarray(jax_ops.pack_oxli_bytes(spec, jnp.asarray(table)))
     pspec = sketch_ops.SketchSpec(kind, SIZES)
     got = sketch_ops.pack_oxli_bytes(pspec, _t(table))
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        sketch_ops.host_pack_oxli_bytes(pspec, table), want)
     back = sketch_ops.unpack_oxli_bytes(pspec, want, "cpu")
     np.testing.assert_array_equal(
         back.numpy().view(np.uint32),
