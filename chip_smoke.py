@@ -133,6 +133,31 @@ Phases (any failure exits non-zero; nothing is caught):
      count; (e) K11, K5c and K3 at cap 15 must have been launched by
      this run.  Walls, device busy shares and peak device memory are
      printed.
+  3f. K12 (band_mask_weights) against its plain version on the card,
+     exact: the first 2**23-lane chunk of the phase-4 file with K1 and
+     with K8 hashes; bands 0 and 3 of 4 and 1 of 2; the phase-4 .ct's
+     table as the mask at its cap (thresholds 0 and 5, consume_masked
+     both ways) and at cap 1 (a Nodegraph's read); band and mask
+     together; the crafted hashes 0, 2**63 - 1, 2**63, the band's edges
+     and 2**64 - 1.  CUDA-event times beside K3 on the same keys;
+  9. slice 10's path through the port's public entry points, -k 20 -N 4
+     -x 1e8: (a) a Counttable of the phase-4 file, then
+     consume_seqfile_banding into four fresh tables, bands 0-3 of 4,
+     whose bins sum to the full table's, consumed counts to its
+     n_consumed and n_unique within the collision bound of the exact
+     distinct count; (b) Countgraphs of the phase-5 file through
+     consume_seqfile_with_mask of a Nodegraph of the phase-4 file
+     (threshold 0, and 1 with consume_masked) that add up to the unmasked
+     consume bin for bin and in consumed; (c) the same with a Nodetable
+     mask and band 3 of 4 of a Counttable (above 2**63) through
+     consume_seqfile_banding_with_mask against consume_seqfile_banding;
+     (d) get_raw_tables of a Countgraph of the phase-4 file equal to the
+     phase-4 .ct's table bytes, get_kmers and n_tables, and
+     Nodegraph.update of the Nodegraphs of the two halves of the file
+     equal to the whole file's; (e) every run of (a)-(c) equal to the
+     same run through the plain versions on the card (results, bins,
+     n_unique).  Walls, reads/s, device busy shares, K12 launches and
+     peak device memory are printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -187,6 +212,8 @@ SOURCES = {
                       "khmer_tpu/ops/rollinghash.py:155"),
     "row_counts_cyclic": ("khmer_tpu_torch/kernels/csrc/rows.cu",
                           "khmer_tpu/hashtable.py:472"),
+    "band_mask_weights": ("khmer_tpu_torch/kernels/csrc/filter.cu",
+                          "khmer_tpu/hashtable.py:141"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
@@ -2445,6 +2472,346 @@ def run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: K12 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def check_filter_kernel(dev, reads_fa, ct, rec):
+    """K12 on the first chunk of the phase-4 file (K1 lanes and K8 lanes
+    of the same bases) against its plain version: band only, mask only
+    (the phase-4 .ct's table at its cap and at cap 1, as a Nodegraph is
+    read; thresholds 0 and 5, consume_masked both ways), both, and the
+    crafted hashes at the band edges; CUDA-event times beside K3 on the
+    same keys.  bytes: 8 (hash) + 4 (weight) read and 4 written a lane,
+    and with a mask the T bins of each distinct hash that reaches the
+    gather.  Library time: none, no PyTorch call computes the filter and
+    its total."""
+    import torch
+
+    from khmer_tpu_torch import Countgraph, Counttable, _u64, kernels
+    from khmer_tpu_torch.hashtable import CHUNK
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.native import NativeChunkReader
+    from khmer_tpu_torch.ops.hashing import compute_band_interval
+
+    log("phase 3f: K12 on the first {}-lane chunk of the phase-4 file (K1 "
+        "and K8 lanes) against the phase-4 .ct".format(CHUNK))
+    with NativeChunkReader(reads_fa, K, CHUNK) as reader:
+        codes, mask = (torch.from_numpy(a).to(dev) for a in next(iter(reader)))
+    lanes = {"k1": kernels.hash2bit_canonical(codes, mask, K),
+             "k8": Counttable(K, 1, 1, primes=[1009], device=dev)
+             ._chunk_lanes(codes, mask)}
+    del codes, mask
+    st = Countgraph.load(ct, device=dev).storage
+    geom, T = st._geom, st.spec.n_tables
+    by_name = {}
+    edges = 0
+
+    def case(name, hashes, weights, band=None, cap=None, **kw):
+        filt = {} if band is None else {"band": compute_band_interval(*band)}
+        if cap is not None:
+            filt.update(zip(("table", "sizes", "offsets", "recips"),
+                            (st.table, *geom)), cap=cap, **kw)
+        out = []
+        for fn in (kernels.band_mask_weights, plain.band_mask_weights):
+            total = torch.zeros(1, dtype=torch.int64, device=dev)
+            out.append((fn(hashes, weights, total, **filt), total))
+        err = max(max_abs_err(a, b) for a, b in zip(*out))
+        if hashes.numel() < 1024:
+            by_name[name] = dict(err=err, n=hashes.numel(),
+                                 kept=int(out[1][1]))
+            log("K12 {}: {}".format(name, json.dumps(by_name[name])))
+            return err
+        total = torch.zeros(1, dtype=torch.int64, device=dev)
+        gathered = weights != 0
+        if band is not None:
+            key = _u64.sort_key(hashes)
+            lo, hi = filt["band"]
+            gathered &= (key >= lo + _u64.SIGN) & (key < hi + _u64.SIGN)
+        n_gather = int(torch.unique(hashes[gathered]).numel()) \
+            if cap is not None else 0
+        n = hashes.numel()
+        r = dict(err=err, n=n, passed=int(out[1][1]),
+                 ms=cuda_ms(lambda: kernels.band_mask_weights(
+                     hashes, weights, total, **filt), 10),
+                 plain_ms=cuda_ms(lambda: plain.band_mask_weights(
+                     hashes, weights, total, **filt), 3, inner=1),
+                 bytes=n * 16 + n_gather * T * 4, distinct_gathered=n_gather)
+        r["bound_ms"] = bound_ms(r["bytes"])
+        if cap is not None:
+            r["k3_ms"] = cuda_ms(lambda: kernels.sketch_get(
+                st.table, hashes, *geom, cap), 10)
+            r["sectors_per_s"] = int(gathered.sum()) * T / (r["ms"] * 1e-3)
+        by_name[name] = r
+        log("K12 {}: {}".format(name, json.dumps(r)))
+        return err
+
+    err = 0
+    h1, w1 = lanes["k1"]
+    h8, w8 = lanes["k8"]
+    cap = st.read_cap()
+    for band in ((4, 0), (4, 3), (2, 1)):
+        err = max(err, case("band {} of {} k8".format(band[1], band[0]),
+                            h8, w8, band))
+    err = max(err, case("band 0 of 4 k1", h1, w1, (4, 0)))
+    for threshold in (0, 5):
+        for cm in (False, True):
+            err = max(err, case(
+                "mask t{}{} k1".format(threshold, " masked" if cm else ""),
+                h1, w1, cap=cap, threshold=threshold, consume_masked=cm))
+    err = max(err, case("mask cap 1 t0 k1", h1, w1, cap=1, threshold=0))
+    err = max(err, case("band 3 of 4 + mask t0 k8", h8, w8, (4, 3), cap=cap,
+                        threshold=0))
+    for band in ((4, 0), (4, 3), (2, 1), (3, 1)):
+        lo, hi = compute_band_interval(*band)
+        hs = np.array([0, 2 ** 63 - 1, 2 ** 63, lo, hi - 1, hi,
+                       2 ** 64 - 1], np.uint64)
+        hs = _u64.as_tensor(hs, dev)
+        ws = torch.tensor([1, 2, 3, 4, 5, -1, 7], dtype=torch.int32,
+                          device=dev)
+        edges += 1
+        err = max(err, case("edges band {} of {}".format(band[1], band[0]),
+                            hs, ws, band))
+        err = max(err, case("edges band {} of {} + mask".format(
+            band[1], band[0]), hs, ws, band, cap=cap, threshold=1))
+    if err:
+        fail("band_mask_weights disagrees with its plain version")
+    main = by_name["mask t0 k1"]
+    record_kernel(rec, "band_mask_weights", err, main["ms"],
+                  main["plain_ms"], main["bytes"], k3_ms=main["k3_ms"],
+                  sectors_per_s=main["sectors_per_s"], n=main["n"],
+                  shapes={k: v for k, v in by_name.items()
+                          if k != "mask t0 k1"})
+    del st, lanes, h1, w1, h8, w8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: slice 10, the banded and masked consume, at full width
+# ---------------------------------------------------------------------------
+
+
+def table_u32(t):
+    """A table's bins as int64 values of their uint32 patterns."""
+    import torch
+
+    return t.storage.table.to(torch.int64) & 0xFFFFFFFF
+
+
+def slice10_step(name, build, dev, card, runs):
+    """One run of phase 9: `build()` through the kernels (profiled), then
+    through the plain versions on the card; their results and tables must
+    be equal.  Records the wall, busy seconds and K12 launches under
+    runs[name]; returns the kernel run's (result, table object)."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    sync(dev)
+    before = kernels.LAUNCHES["band_mask_weights"]
+    got = {}
+    wall, busy = device_share(name, lambda: got.update(r=build()), card)
+    k12 = kernels.LAUNCHES["band_mask_weights"] - before
+    sync(dev)
+    with mock.patch.multiple(kernels, **{n: getattr(plain, n)
+                                         for n in kernels.KERNELS}):
+        t0 = time.perf_counter()
+        ref = build()
+        sync(dev)
+        plain_wall = time.perf_counter() - t0
+    (res, table), (pres, ptable) = got["r"], ref
+    if res != pres or not torch.equal(table.storage.table,
+                                      ptable.storage.table) or \
+            table.n_unique_kmers() != ptable.n_unique_kmers():
+        fail("(e) {}: the kernels and the plain versions differ: {} vs {}"
+             .format(name, res, pres))
+    del ptable
+    runs[name] = dict(wall=wall, busy=busy, plain_wall=plain_wall,
+                      k12_launches=k12, result=res)
+    return res, table
+
+
+def run_slice10(card, dev, tmp, reads_fa, pairs_fa, ct, uniq4):
+    """Phase 9: (a) banding, (b) the mask, (c) both, (d) the rest of the
+    API on the phase-4 table, (e) every run of (a)-(c) equal to its run
+    through the plain versions.  Returns the path's launches."""
+    import torch
+
+    from khmer_tpu_torch import (Countgraph, Counttable, Nodegraph,
+                                 Nodetable, kernels)
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+
+    log("phase 9: banded and masked consumes -k {} -N 4 -x {:.0e} of the "
+        "phase-4 and phase-5 files".format(K, TABLE_SIZE))
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    runs = {}
+    # records: 111 bytes in the phase-4 file, 114 in the phase-5 file
+    reads = {reads_fa: os.path.getsize(reads_fa) // 111,
+             pairs_fa: os.path.getsize(pairs_fa) // 114}
+
+    def step(name, cls, method, path, *args, **kw):
+        def build():
+            t = cls(K, TABLE_SIZE, 4, device=dev)
+            return getattr(t, method)(path, *args, **kw), t
+        res, t = slice10_step(name, build, dev, card, runs)
+        runs[name]["reads"] = reads[path]
+        return res, t
+
+    # (a) the four bands of a Counttable against its full consume
+    (n_reads, n_consumed), full = step("Counttable consume_seqfile",
+                                       Counttable, "consume_seqfile",
+                                       reads_fa)
+    acc = table_u32(full)
+    full_unique = full.n_unique_kmers()
+    del full
+    consumed = n_unique = 0
+    for b in range(4):
+        (nr, c), t = step("Counttable banding 4 {}".format(b), Counttable,
+                          "consume_seqfile_banding", reads_fa, 4, b)
+        if nr != n_reads or not runs["Counttable banding 4 {}".format(b)][
+                "k12_launches"]:
+            fail("(a) band {}: {} reads, K12 launched {} times".format(
+                b, nr, runs["Counttable banding 4 {}".format(b)][
+                    "k12_launches"]))
+        acc -= table_u32(t)
+        consumed += c
+        n_unique += t.n_unique_kmers()
+        del t
+    distinct = int(uniq4.size)
+    occ = 1.0 - math.exp(-distinct / min(get_n_primes_near_x(4, TABLE_SIZE)))
+    bound = int(math.ceil(10 * distinct * occ ** 4)) + 10
+    if acc.any() or consumed != n_consumed or \
+            not 0 <= distinct - n_unique <= bound:
+        fail("(a) the bands do not add up: bins off by {}, consumed {} vs "
+             "{}, n_unique {} vs the exact {} (bound {})".format(
+                 int(acc.abs().sum()), consumed, n_consumed, n_unique,
+                 distinct, bound))
+    del acc
+    log("(a) 4 band tables == the full Counttable bin for bin; consumed "
+        "{} == {}; n_unique {} (full {}) against {} distinct (bound {})"
+        .format(consumed, n_consumed, n_unique, full_unique, distinct,
+                bound))
+
+    # (b) a Countgraph of the phase-5 file masked by a Nodegraph of the
+    # phase-4 file, both ways, against the unmasked consume
+    _, ng = step("Nodegraph mask consume_seqfile", Nodegraph,
+                 "consume_seqfile", reads_fa)
+    (_, n5), plain5 = step("Countgraph consume_seqfile (phase 5)",
+                           Countgraph, "consume_seqfile", pairs_fa)
+    acc = table_u32(plain5)
+    del plain5
+    parts = []
+    for name, kw in (("absent", {}), ("present", dict(threshold=1,
+                                                      consume_masked=True))):
+        (_, c), t = step("Countgraph with_mask {}".format(name), Countgraph,
+                         "consume_seqfile_with_mask", pairs_fa, ng, **kw)
+        acc -= table_u32(t)
+        parts.append(c)
+        del t
+    if acc.any() or sum(parts) != n5:
+        fail("(b) masked + unmasked is not the unmasked consume: bins off "
+             "by {}, consumed {} vs {}".format(int(acc.abs().sum()), parts,
+                                               n5))
+    del acc
+    log("(b) threshold 0 (the k-mers absent from the phase-4 reads) + "
+        "threshold 1 with consume_masked (present) == the unmasked "
+        "Countgraph bin for bin; consumed {} + {} == {}; {:.4%} of the "
+        "phase-5 k-mers masked out at threshold 0".format(
+            parts[0], parts[1], n5, parts[1] / n5))
+
+    # (c) band 3 of 4 of a Counttable of the phase-5 file, masked by a
+    # Nodetable of the phase-4 file, both ways
+    _, nt = step("Nodetable mask consume_seqfile", Nodetable,
+                 "consume_seqfile", reads_fa)
+    (_, c3), t = step("Counttable banding 4 3 (phase 5)", Counttable,
+                      "consume_seqfile_banding", pairs_fa, 4, 3)
+    acc = table_u32(t)
+    del t
+    parts = []
+    for name, kw in (("absent", {}), ("present", dict(threshold=1,
+                                                      consume_masked=True))):
+        (_, c), t = step("Counttable banding_with_mask 4 3 {}".format(name),
+                         Counttable, "consume_seqfile_banding_with_mask",
+                         pairs_fa, 4, 3, nt, **kw)
+        acc -= table_u32(t)
+        parts.append(c)
+        del t
+    if acc.any() or sum(parts) != c3 or not c3:
+        fail("(c) band 3 masked + unmasked is not band 3: bins off by {}, "
+             "consumed {} vs {}".format(int(acc.abs().sum()), parts, c3))
+    del acc, nt
+    log("(c) band 3 of 4 at threshold 0 + at threshold 1 with "
+        "consume_masked == band 3 bin for bin; consumed {} + {} == {} of "
+        "{}".format(parts[0], parts[1], c3, n5))
+
+    # (d) the rest of the API on the phase-4 table
+    cg = Countgraph(K, TABLE_SIZE, 4, device=dev)
+    cg.consume_seqfile(reads_fa)
+    raw = [np.frombuffer(b, np.uint8) for b in cg.get_raw_tables()]
+    _, _, saved = ct_tables(ct)
+    if cg.n_tables() != 4 or len(raw) != len(saved) or any(
+            not np.array_equal(a, b) for a, b in zip(raw, saved)):
+        fail("(d) get_raw_tables is not the saved .ct's table bytes")
+    seq = fixed_records(reads_fa, 1, 111, 10)[0]
+    kmers = cg.get_kmers(seq)
+    if len(kmers) != len(seq) - K + 1 or kmers[1] != seq[1:K + 1]:
+        fail("(d) get_kmers")
+    del cg, raw, saved
+    halves = []
+    with open(reads_fa, "rb") as f:
+        data = f.read()
+    cut = reads[reads_fa] // 2 * 111
+    for i, part in enumerate((data[:cut], data[cut:])):
+        path = os.path.join(tmp, "half{}.fa".format(i))
+        with open(path, "wb") as g:
+            g.write(part)
+        h = Nodegraph(K, TABLE_SIZE, 4, device=dev)
+        h.consume_seqfile(path)
+        halves.append(h)
+    before = halves[0].n_unique_kmers()
+    sync(dev)
+    t0 = time.perf_counter()
+    halves[0].update(halves[1])
+    sync(dev)
+    t_update = time.perf_counter() - t0
+    whole = [bytes(b) for b in ng.get_raw_tables()]
+    if [bytes(b) for b in halves[0].get_raw_tables()] != whole or \
+            halves[0].n_unique_kmers() != before:
+        fail("(d) Nodegraph.update of the two halves is not the whole")
+    log("(d) get_raw_tables == the phase-4 .ct's {} tables; get_kmers, "
+        "n_tables 4; Nodegraph.update of the two halves == the whole "
+        "file's Nodegraph ({:.4f} s, n_unique left at {})".format(
+            len(whole), t_update, before))
+    del halves, whole, ng
+
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 9 launches (kernel runs only): {}".format(
+        json.dumps(launches)))
+    log("phase 9 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    for name, r in runs.items():
+        busy = r["busy"]
+        log("{}: {:.3f} s (profiled) [plain {:.3f} s], {:.0f} reads/s, "
+            "device busy {}, K12 launches {} [{}]".format(
+                name, r["wall"], r["plain_wall"], r["reads"] / r["wall"],
+                "not measured" if busy is None else
+                "{:.3f} s = {:.1f}%".format(busy, 100 * busy / r["wall"]),
+                r["k12_launches"], card))
+    log("(e) every run of (a)-(c) == its plain-version run on the card")
+    if not launches["band_mask_weights"]:
+        fail("K12 was not launched by the slice-10 path")
+    log("phase 9: {:.1f} s with its plain runs and checks [{}]".format(
+        time.perf_counter() - t_phase, card))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2481,17 +2848,20 @@ def main():
         check_cc_kernel(args.seed, dev, rec, star)
         check_cyclic_kernels(args.seed, dev, reads_fa, pairs_fa, rec)
         small = run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4)
+        check_filter_kernel(dev, reads_fa, ct, rec)
+        slice10 = run_slice10(card, dev, tmp, reads_fa, pairs_fa, ct, uniq4)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by
     # the partitioning path (phase 7), K11 and K5c by the slice-3b path
-    # (phase 8)
+    # (phase 8), K12 by the slice-10 path (phase 9)
     launches.update({k: slice2[k] for k in SOURCES
                      if k not in MAIN_PATH and k in slice2})
     launches.update({k: murmur[k] for k in ("murmur_hashes", "hll_update")})
     launches["cc_rounds"] = partition["cc_rounds"]
     launches.update({k: small[k] for k in ("cyclic_hashes",
                                            "row_counts_cyclic")})
+    launches["band_mask_weights"] = slice10["band_mask_weights"]
     rec["row_counts"]["murmur_launches"] = murmur["row_counts_murmur"]
 
     from khmer_tpu_torch.kernels import (CC_BLOCK, CC_KERNELS_PER_ROUND,

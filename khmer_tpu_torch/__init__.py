@@ -21,7 +21,13 @@ annotate-partitions and extract-partitions; 4-bit counts and the cyclic
 hash (slice 3b): SmallCountgraph (behind ``--small-count`` in
 load-into-counting, abundance-dist-single, normalize-by-median,
 filter-abund-single and trim-low-abund), SmallCounttable and
-CyclicCounttable (the rolling hash, any k up to 255).
+CyclicCounttable (the rolling hash, any k up to 255); the banded and
+masked consume (``consume_seqfile_banding``, ``consume_seqfile_with_mask``,
+``consume_seqfile_banding_with_mask``) and the rest of the table API
+(slices 2b and 3c): ``n_tables``, ``get_kmers``, ``get_raw_tables``,
+``consume_fasta``, ``Nodegraph.update``, the positional dumps, the hash
+and prime helpers, FastxParser (``parsing``), ``thread_utils``, Kmer,
+HashSet and the 1.x names Hashbits, new_hashbits and new_hashtable.
 """
 
 from collections import namedtuple
@@ -31,22 +37,35 @@ import sys
 from khmer_tpu_torch._version import __version__
 from khmer_tpu_torch.graph import (Countgraph, Hashgraph, Nodegraph,
                                    SmallCountgraph)
+from khmer_tpu_torch.hashset import HashSet
 from khmer_tpu_torch.hashtable import (Counttable, CyclicCounttable,
                                        Nodetable, SmallCounttable)
 from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxReader, Read
 from khmer_tpu_torch.io.oxli_format import FILETYPES
+from khmer_tpu_torch.kmer import Kmer
+from khmer_tpu_torch.legacy import Hashbits, new_hashbits, new_hashtable
 from khmer_tpu_torch.ops.hashing import (
+    forward_hash,
+    forward_hash_no_rc,
     hash_murmur3_scalar as hash_murmur3,
     hash_no_rc_murmur3_scalar as hash_no_rc_murmur3,
+    reverse_complement,
+    reverse_hash,
 )
+from khmer_tpu_torch.parsing import FastxParser
 from khmer_tpu_torch.partitioning import SubsetPartition
+from khmer_tpu_torch.primes import get_n_primes_near_x, is_prime
 
-__all__ = ["Countgraph", "Counttable", "CyclicCounttable", "FastxReader",
-           "HLLCounter", "Hashgraph", "Nodegraph", "Nodetable", "Read",
-           "ReadParser", "SmallCountgraph", "SmallCounttable",
-           "SubsetPartition", "__version__", "calc_expected_collisions",
-           "extract_countgraph_info", "hash_murmur3", "hash_no_rc_murmur3"]
+__all__ = ["Countgraph", "Counttable", "CyclicCounttable", "FastxParser",
+           "FastxReader", "HLLCounter", "HashSet", "Hashbits", "Hashgraph",
+           "Kmer", "Nodegraph", "Nodetable", "Read", "ReadParser",
+           "SmallCountgraph", "SmallCounttable", "SubsetPartition",
+           "__version__", "__version_cpp__", "calc_expected_collisions",
+           "extract_countgraph_info", "extract_nodegraph_info",
+           "forward_hash", "forward_hash_no_rc", "get_n_primes_near_x",
+           "hash_murmur3", "hash_no_rc_murmur3", "is_prime", "new_hashbits",
+           "new_hashtable", "reverse_complement", "reverse_hash"]
 
 # khmer's name for its read parser (khmer_tpu/__init__.py:60)
 ReadParser = FastxReader
@@ -58,6 +77,29 @@ _buckets_per_byte = {
     'smallcountgraph': 2,
     'nodegraph': 8,
 }
+
+
+def extract_nodegraph_info(filename):
+    """Header peek for a nodegraph file (khmer/__init__.py:96-132)."""
+    try:
+        with open(filename, 'rb') as f:
+            signature, = unpack('4s', f.read(4))
+            version, = unpack('B', f.read(1))
+            ht_type, = unpack('B', f.read(1))
+            ksize, = unpack('I', f.read(4))
+            n_tables, = unpack('B', f.read(1))
+            occupied, = unpack('Q', f.read(8))
+            table_size, = unpack('Q', f.read(8))
+        if signature != b"OXLI":
+            raise ValueError(
+                "Node graph '{}' is missing file type "
+                "signature".format(filename) + str(signature))
+    except ValueError:
+        raise
+    except Exception:
+        raise ValueError("Node graph '{}' is corrupt ".format(filename))
+
+    return ksize, round(table_size, -2), n_tables, version, ht_type, occupied
 
 
 def extract_countgraph_info(filename):
@@ -90,6 +132,14 @@ def extract_countgraph_info(filename):
 
     return CgInfo(ksize, n_tables, round(table_size, -2), use_bigcount,
                   version, ht_type, occupied)
+
+
+def __version_cpp__():
+    """Version stamp compiled into the native loader: the analogue of
+    reference khmer.__version_cpp__ (_cpy_khmer.cc / tests/test_version.py)."""
+    from khmer_tpu_torch.native import native_version
+
+    return native_version()
 
 
 def calc_expected_collisions(graph, force=False, max_false_pos=.2):

@@ -278,3 +278,12 @@ class Nodegraph(Hashgraph):
     """Presence/absence (Bloom) de Bruijn graph."""
 
     storage_class = BitStorage
+
+    def update(self, other):
+        """Union with another same-shaped Nodegraph (graphs.pyx name)."""
+        if self.ksize() != other.ksize():
+            raise ValueError(
+                "both nodegraphs must have the same k size")
+        self.storage.update_from(other.storage)
+
+    update_from = update

@@ -40,7 +40,8 @@ from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import KSIZE_MAX, MAX_BIGCOUNT, MAX_KCOUNT
 from khmer_tpu_torch.io import oxli_format
 from khmer_tpu_torch.ops import encode as enc
-from khmer_tpu_torch.ops.hashing import (chunk_hashes, cyclic_window_hashes,
+from khmer_tpu_torch.ops.hashing import (chunk_hashes, compute_band_interval,
+                                         cyclic_window_hashes,
                                          forward_hash, hash_murmur3_scalar,
                                          kmer_hashes_2bit,
                                          murmur_window_hashes, reverse_hash,
@@ -329,6 +330,9 @@ class Hashtable:
     def hashsizes(self):
         return self.storage.get_tablesizes()
 
+    def n_tables(self):
+        return self.storage.spec.n_tables
+
     def n_occupied(self):
         return self.storage.n_occupied()
 
@@ -422,6 +426,20 @@ class Hashtable:
         self._valid_sequence(sequence)
         return [int(h) for h in self._hash_array(sequence)]
 
+    def get_kmer_hashes_as_hashset(self, sequence):
+        """Hashes of every k-mer in sequence as a HashSet
+        (reference khmer/_oxli/graphs.pyx get_kmer_hashes_as_hashset)."""
+        from khmer_tpu_torch.hashset import HashSet
+
+        return HashSet(self._ksize, self.get_kmer_hashes(sequence))
+
+    def get_kmers(self, sequence):
+        """All k-mer substrings, in order; too-short sequences raise
+        like the reference binding (graphs.pyx get_kmers)."""
+        k = self._ksize
+        self._valid_sequence(sequence)
+        return [sequence[i: i + k] for i in range(len(sequence) - k + 1)]
+
     # -- single k-mer ops -------------------------------------------------
 
     def add(self, kmer):
@@ -486,6 +504,75 @@ class Hashtable:
         for codes, mask in self._chunks(parser_or_filename, chunk, stats):
             self.storage.add_lanes(*self._chunk_lanes(codes, mask))
         return stats.n_reads, stats.n_consumed
+
+    def consume_fasta(self, parser_or_filename):
+        """1.x name for consume_seqfile (_cpy_khmer.cc hash_consume_fasta)."""
+        return self.consume_seqfile(parser_or_filename)
+
+    def consume_fasta_with_reads_parser(self, parser):
+        """1.x name for consume_seqfile on an open parser."""
+        return self.consume_seqfile(parser)
+
+    def _consume_filtered(self, parser_or_filename, chunk, num_bands=None,
+                          band=None, mask=None, threshold=0,
+                          consume_masked=False):
+        """consume_seqfile through the band and mask filters
+        (khmer_tpu/hashtable.py:_run_consume): per chunk, K1 (K8, K11)
+        lanes, kernel K12 zeroes the weights of the lanes outside the band
+        or failing the mask test and adds the rest to a total on the
+        device, and K2 adds the lanes (a weight-0 lane is dead: it claims
+        no bin and is no bigcount candidate).  The mask is read with this
+        table's hashes, at its storage kind's cap and without a loaded
+        bigcount map, as khmer_tpu reads it.  Returns (n_reads, the k-mers
+        that passed the filters; hashtable.cc:181-191), the total read
+        once at the end."""
+        if isinstance(parser_or_filename, str):
+            # khmer_tpu opens the input before it checks the band
+            open(parser_or_filename, "rb").close()
+        filters = {}
+        if num_bands is not None:
+            filters["band"] = compute_band_interval(num_bands, band)
+        if mask is not None:
+            ms = mask.storage
+            filters.update(zip(("table", "sizes", "offsets", "recips"),
+                               (ms.table, *ms._geom)))
+            filters.update(cap=ms.read_cap(), threshold=threshold,
+                           consume_masked=consume_masked)
+        stats = _StreamStats()
+        total = torch.zeros(1, dtype=torch.int64, device=self.device)
+        for codes, m in self._chunks(parser_or_filename, chunk, stats):
+            h, w = self._chunk_lanes(codes, m)
+            self.storage.add_lanes(
+                h, kernels.band_mask_weights(h, w, total, **filters))
+        return stats.n_reads, int(total.item())
+
+    def consume_seqfile_with_mask(self, parser_or_filename, mask,
+                                  threshold=0, consume_masked=False,
+                                  chunk=CHUNK):
+        """Count the k-mers whose count in `mask` is <= threshold (or >=
+        threshold with consume_masked=True; hashtable.cc:160-198).
+        Returns (n_reads, the k-mers counted)."""
+        return self._consume_filtered(parser_or_filename, chunk, mask=mask,
+                                      threshold=threshold,
+                                      consume_masked=consume_masked)
+
+    def consume_seqfile_banding(self, parser_or_filename, num_bands, band,
+                                chunk=CHUNK):
+        """Count only the k-mers whose hash falls in band `band` of
+        `num_bands` (hashtable.hh:302-344).  Returns (n_reads, the k-mers
+        counted)."""
+        return self._consume_filtered(parser_or_filename, chunk,
+                                      num_bands=num_bands, band=band)
+
+    def consume_seqfile_banding_with_mask(self, parser_or_filename,
+                                          num_bands, band, mask,
+                                          threshold=0,
+                                          consume_masked=False,
+                                          chunk=CHUNK):
+        """Both filters of consume_seqfile_banding and
+        consume_seqfile_with_mask."""
+        return self._consume_filtered(parser_or_filename, chunk, num_bands,
+                                      band, mask, threshold, consume_masked)
 
     # -- per-sequence statistics ------------------------------------------
 
@@ -871,7 +958,37 @@ class Hashtable:
                     fix[v] += 1
         return fix
 
+    abundance_distribution_with_reads_parser = abundance_distribution
+
+    # -- khmer 1.x/2.x per-read dumps (legacy.py) -------------------------
+
+    def output_fasta_kmer_pos_freq(self, inputfile, outputfile):
+        """Per-read window-count dump (lib/counting.cc)."""
+        from khmer_tpu_torch import legacy
+
+        return legacy.output_fasta_kmer_pos_freq(self, inputfile, outputfile)
+
+    def fasta_count_kmers_by_position(self, inputfile, max_read_len,
+                                      limit_by_count=0):
+        """Positional window-count tallies (lib/counting.cc)."""
+        from khmer_tpu_torch import legacy
+
+        return legacy.fasta_count_kmers_by_position(
+            self, inputfile, max_read_len, limit_by_count)
+
     # -- save/load --------------------------------------------------------
+
+    def get_raw_tables(self):
+        """Per-table byte buffers in the OXLI on-disk layout
+        (graphs.pyx:508,966): snapshots of the device table, not live
+        views; call again after updates."""
+        raw = self.storage.raw_bytes()
+        out = []
+        off = 0
+        for nb in self.storage.spec.bytes_per_table:
+            out.append(memoryview(raw[off: off + nb]))
+            off += nb
+        return out
 
     def save(self, file_name):
         oxli_format.save_storage(file_name, self._ksize, self.storage)

@@ -24,7 +24,7 @@ from khmer_tpu_torch.kernels import _build, plain
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
            "trim_chain", "murmur_hashes", "hll_update", "cc_rounds",
-           "cyclic_hashes")
+           "cyclic_hashes", "band_mask_weights")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # row_counts' launches by hash kind (its 2-bit, murmur and cyclic variants)
 ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0, "cyclic": 0}
@@ -214,6 +214,59 @@ def abund_hist(keys, table, sizes, offsets, recips, track, t_sizes,
                 t_recips.data_ptr(), int(cap), hist.data_ptr(),
                 new.data_ptr())
     return new
+
+
+def band_mask_weights(hashes, weights, total, band=None, table=None,
+                      sizes=None, offsets=None, recips=None, cap=0,
+                      threshold=0, consume_masked=False):
+    """K12: the band and mask filters of a consume.  Lane i keeps its
+    weight (int32 [n], a uint32 bit pattern) when its hash (int64 [n])
+    lies in band = (bmin, bmax), bmin <= h < bmax unsigned, and, with a
+    mask sketch (table, sizes, offsets, recips: its own geometry), when
+    the hash's count there, capped at cap, is <= threshold (>= threshold
+    with consume_masked); else its weight becomes 0.  At least one of band
+    and table is given.  Adds the sum of the new weights (as uint32) to
+    total (int64 [1], a uint64 bit pattern), in place, and returns the
+    new weights, int32 [n]; see csrc/filter.cu."""
+    dev = hashes.device
+    _check("hashes", hashes, torch.int64, dev)
+    _check("weights", weights, torch.int32, dev)
+    _check("total", total, torch.int64, dev)
+    if hashes.dim() != 1 or weights.shape != hashes.shape or \
+            total.numel() != 1:
+        raise ValueError("band_mask_weights: need hashes and weights [n] "
+                         "and total [1]")
+    if band is None and table is None:
+        raise ValueError("band_mask_weights: need a band, a mask or both")
+    if band is not None and not 0 <= band[0] <= band[1] < 1 << 64:
+        raise ValueError("band_mask_weights: need 0 <= bmin <= bmax < 2**64")
+    if table is not None:
+        _check_geometry(table, sizes, offsets, recips)
+        if table.device != dev:
+            raise ValueError("band_mask_weights: mask on {}, hashes on "
+                             "{}".format(table.device, dev))
+        if not 0 <= threshold < 1 << 32:
+            raise ValueError("band_mask_weights: threshold must be in "
+                             "[0, 2**32)")
+    if dev.type != "cuda":
+        return plain.band_mask_weights(hashes, weights, total, band, table,
+                                       sizes, offsets, recips, cap,
+                                       threshold, consume_masked)
+    n = hashes.numel()
+    out = torch.empty_like(weights)
+    if n:
+        bmin, bmax = (0, 0) if band is None else band
+        masked = table is not None
+        _launch("band_mask_weights", hashes.data_ptr(), weights.data_ptr(),
+                n, band is not None, int(bmin), int(bmax),
+                table.data_ptr() if masked else None,
+                sizes.numel() if masked else 0,
+                sizes.data_ptr() if masked else None,
+                offsets.data_ptr() if masked else None,
+                recips.data_ptr() if masked else None, int(cap),
+                int(threshold), bool(consume_masked), out.data_ptr(),
+                total.data_ptr())
+    return out
 
 
 def bin_scatter_add(table, idx, vals):

@@ -19,12 +19,12 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("hash2bit", "sketch", "abund", "rows", "chain", "murmur", "hll",
-           "cc", "cyclic")
+           "cc", "cyclic", "filter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_uint)
+_P, _I, _LL, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint, ctypes.c_ulonglong)
 # C entry point -> argument types; every entry returns a cudaError_t
 SIGNATURES = {
     "khmer_hash2bit_canonical": (_P, _P, _LL, _I, _P, _P, _P),
@@ -44,6 +44,8 @@ SIGNATURES = {
     "khmer_cyclic_hashes": (_P, _LL, _I, _I, _P, _P),
     "khmer_hll_update": (_P, _P, _LL, _I, _I, _U, _P, _P),
     "khmer_cc_rounds": (_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P),
+    "khmer_band_mask_weights": (_P, _P, _LL, _I, _ULL, _ULL, _P, _I, _P, _P,
+                                _P, _U, _U, _I, _P, _P, _P),
     "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P, _LL,
                              _P),
     "khmer_trim_chain": (_P, _P, _P, _P, _I, _I, _U, _U, _I, _U, _P, _P, _P,

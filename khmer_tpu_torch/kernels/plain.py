@@ -98,6 +98,26 @@ def abund_hist(keys, table, sizes, offsets, recips, track, t_sizes,
     return new.to(torch.int32)
 
 
+def band_mask_weights(hashes, weights, total, band=None, table=None,
+                      sizes=None, offsets=None, recips=None, cap=0,
+                      threshold=0, consume_masked=False):
+    """The weights with every lane zeroed whose hash lies outside band =
+    (bmin, bmax) (unsigned) or whose capped mask count fails the threshold
+    (<=, or >= with consume_masked); adds their sum (as uint32) to total
+    (int64 [1]) and returns them, int32 [n]."""
+    keep = torch.ones_like(weights, dtype=torch.bool)
+    if band is not None:
+        key = _u64.sort_key(hashes)
+        keep &= (key >= band[0] + _u64.SIGN) & (key < band[1] + _u64.SIGN)
+    if table is not None:
+        c = sketch_get(table, hashes, sizes, offsets, recips, cap)
+        c = c.to(torch.int64)
+        keep &= (c >= threshold) if consume_masked else (c <= threshold)
+    out = torch.where(keep, weights, 0)
+    total += _u64.u32(out).sum()
+    return out
+
+
 def bin_scatter_add(table, idx, vals):
     """table[idx] += vals (u32 wrap-around), any idx inside the table;
     IndexError (and no update) for a bin outside it."""

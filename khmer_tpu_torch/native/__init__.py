@@ -70,6 +70,14 @@ def get_lib():
     return _lib
 
 
+def native_version():
+    """The version string compiled into the native loader."""
+    fn = get_lib().kio_version
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = []
+    return fn().decode()
+
+
 class NativeChunkReader:
     """Stream (codes, mask) uint8 chunks of a sequence file.
 

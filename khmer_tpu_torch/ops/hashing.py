@@ -31,7 +31,6 @@ _TWOBIT = {"A": 0, "T": 1, "C": 2, "G": 3}
 _REVTWOBIT = "ATCG"
 
 
-
 def reverse_complement(seq: str) -> str:
     """Reverse complement using khmer's `tbl` (kmer_hash.cc:51-54,157-166)."""
     arr = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
@@ -63,6 +62,11 @@ def hash_2bit_scalar(kmer: str, k: int):
 def forward_hash(kmer: str, k: int) -> int:
     """Canonical (strand-neutral) 2-bit hash; khmer ``forward_hash``."""
     return hash_2bit_scalar(kmer, k)[0]
+
+
+def forward_hash_no_rc(kmer: str, k: int) -> int:
+    """Forward-strand-only 2-bit hash; khmer ``forward_hash_no_rc``."""
+    return hash_2bit_scalar(kmer, k)[1]
 
 
 def reverse_hash(khash: int, k: int) -> str:
@@ -163,6 +167,22 @@ def hash_murmur3_scalar(kmer: str):
 
 def hash_no_rc_murmur3_scalar(kmer: str):
     return murmurhash3_x64_128(kmer.encode("ascii"))[0]
+
+
+def compute_band_interval(num_bands: int, band: int):
+    """Hash-space band [min, max) of a banded consume.
+
+    Parity: reference kmer_hash.cc:290-304 (band_size = U64_MAX / num_bands;
+    note integer division, so the top sliver of hash space belongs to no
+    band -- the reference's semantics, preserved here).
+    """
+    if band >= num_bands or band < 0:
+        raise ValueError(
+            "'band' must be in the interval [0, 'num_bands'), %d not in [0, %d)"
+            % (band, num_bands)
+        )
+    band_size = ((1 << 64) - 1) // num_bands
+    return band_size * band, band_size * (band + 1)
 
 
 def murmur_window_hashes(byts, k: int, assume_acgt=False):

@@ -197,6 +197,20 @@ class BitStorage(Storage):
 
     kind = "bit"
 
+    def update_from(self, other):
+        """Union of two same-geometry Bloom filters (reference
+        src/oxli/storage.cc:63-96): the elementwise unsigned max of the
+        u32 tables, in place on the device; n_unique is left as it was
+        (reference behavior)."""
+        if self.spec.tablesizes != other.spec.tablesizes:
+            raise ValueError("both nodegraphs must have same table sizes")
+        # unsigned order: flip the sign bit on both sides of a signed max
+        flip = -(1 << 31)
+        self.table.bitwise_xor_(flip)
+        torch.maximum(self.table, other.table ^ flip, out=self.table)
+        self.table.bitwise_xor_(flip)
+        self._loaded_occupied = None
+
 
 class ByteStorage(Storage):
     """Count-Min sketch with 8-bit counters + bigcount (storage.hh:485-664)."""

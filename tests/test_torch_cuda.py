@@ -1239,3 +1239,195 @@ def test_partition_scripts_small_on_card(dev, tmp_path):
     for name in ("hash2bit_canonical", "sketch_update", "sketch_get",
                  "cc_rounds"):
         assert launches[name], name
+
+
+# K12: bands of (num_bands, band): the first and last of 4, the upper half,
+# band 1 of 3 across 2**63, and the one band that holds all but 2**64 - 1
+K12_BANDS = [(4, 0), (4, 3), (2, 1), (3, 1), (1, 0)]
+# mask storage kinds: (kind, read cap)
+K12_MASKS = [("bit", 1), ("nibble", 15), ("byte", 255), ("byte", 65535)]
+
+
+def _k12_lanes(rng, n, band=None):
+    """n hashes (random, the crafted edges 0, 2**63 - 1, 2**63, 2**64 - 1
+    and, with a band, its edges and their neighbours, repeated through the
+    batch) and weights 0, 1, 2 and 2**32 - 1."""
+    edges = [0, 2 ** 63 - 1, 2 ** 63, 2 ** 64 - 1]
+    if band is not None:
+        lo, hi = band
+        edges += [lo, max(lo - 1, 0), hi - 1, min(hi, 2 ** 64 - 1)]
+    h = rng.integers(0, 2 ** 64, n, dtype=np.uint64)
+    h[::3] = np.array(edges, np.uint64)[np.arange(0, n, 3) % len(edges)]
+    w = rng.choice(np.array([0, 1, 2, 2 ** 32 - 1], np.uint32), n,
+                   p=[0.2, 0.6, 0.15, 0.05])
+    return (_u64.as_tensor(h, "cpu"),
+            torch.from_numpy(w.view(np.int32)))
+
+
+def _k12_both(dev, hashes, weights, offset=0, mask=None, **kw):
+    """K12 on the card and its plain version on the CPU from the same
+    inputs (hashes and weights as views `offset` lanes into their buffers;
+    mask a (kind, sizes, table) or None), from a total of 7: asserts equal
+    weights and totals and one launch for a nonempty batch; returns the
+    plain weights."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        total = torch.full((1,), 7, dtype=torch.int64, device=d)
+        extra = {}
+        if mask is not None:
+            kind, sizes, table = mask
+            extra = dict(zip(("table", "sizes", "offsets", "recips"),
+                             (table.to(d),
+                              *SketchSpec(kind, sizes).geometry(d))))
+        before = kernels.LAUNCHES["band_mask_weights"]
+        w = kernels.band_mask_weights(hashes.to(d)[offset:],
+                                      weights.to(d)[offset:], total,
+                                      **extra, **kw)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["band_mask_weights"] == before + (
+                1 if hashes.numel() > offset else 0)
+        out.append((w.cpu(), total.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    return out[1][0]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 255, 1025, (1 << 20) + 3])
+@pytest.mark.parametrize("bands", K12_BANDS, ids=str)
+def test_band_mask_weights_band(dev, bands, n, offset):
+    """The band alone: n not a multiple of four lanes or of a block, the
+    crafted hashes at and beside the band's edges; offset 1: no 16-byte
+    loads or stores."""
+    from khmer_tpu_torch.ops.hashing import compute_band_interval
+
+    band = compute_band_interval(*bands)
+    rng = np.random.default_rng(n + 7 * offset + bands[0])
+    hashes, weights = _k12_lanes(rng, n + offset, band)
+    w = _k12_both(dev, hashes, weights, offset, band=band)
+    if n >= 255:
+        assert 0 < int((w != 0).sum()) < int((weights[offset:] != 0).sum())
+
+
+@pytest.mark.parametrize("consume_masked", [False, True])
+@pytest.mark.parametrize("at_cap", [False, True], ids=["t0", "tcap"])
+@pytest.mark.parametrize("kind,cap", K12_MASKS, ids=str)
+@pytest.mark.parametrize("T", [1, 4, 5])
+def test_band_mask_weights_mask(dev, T, kind, cap, at_cap, consume_masked):
+    """The mask alone, of 1 and 4 tables (the unrolled gather) and 5 (the
+    loop), read at each storage kind's cap, threshold 0 and at the cap;
+    3001 lanes as a view one lane in (no vector path) and whole."""
+    rng = np.random.default_rng(T * 100 + cap)
+    sizes = _primes(T)
+    table = _table(rng, sizes, 2 * cap + 2)
+    hashes, weights = _k12_lanes(rng, 3002)
+    for offset in (0, 1):
+        _k12_both(dev, hashes, weights, offset, (kind, sizes, table),
+                  cap=cap, threshold=cap if at_cap else 0,
+                  consume_masked=consume_masked)
+
+
+@pytest.mark.parametrize("consume_masked", [False, True])
+@pytest.mark.parametrize("bands", [(4, 0), (4, 3), (3, 1)], ids=str)
+def test_band_mask_weights_both(dev, bands, consume_masked):
+    from khmer_tpu_torch.ops.hashing import compute_band_interval
+
+    band = compute_band_interval(*bands)
+    rng = np.random.default_rng(bands[1])
+    sizes = _primes(4)
+    table = _table(rng, sizes, 8)
+    hashes, weights = _k12_lanes(rng, 5001, band)
+    _k12_both(dev, hashes, weights, 0, ("byte", sizes, table), band=band,
+              cap=255, threshold=2, consume_masked=consume_masked)
+
+
+def test_band_mask_weights_total_over_calls(dev):
+    """The total is added to, over several calls, and never reset."""
+    rng = np.random.default_rng(3)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    want = 0
+    for n in (1 << 16, 17, 1 << 20):
+        hashes, weights = _k12_lanes(rng, n)
+        w = kernels.band_mask_weights(hashes.to(dev), weights.to(dev),
+                                      total, band=(2 ** 62, 2 ** 64 - 5))
+        want += int(_u64.u32(w.cpu()).sum())
+    assert int(total) == want > 2 ** 32
+
+
+def test_band_mask_weights_refuses(dev):
+    """A mask on another device, no filter at all, a bad band or
+    threshold: ValueError, and nothing launched."""
+    hashes, weights = _k12_lanes(np.random.default_rng(4), 64)
+    hashes, weights = hashes.to(dev), weights.to(dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    geom = SketchSpec("bit", SIZES).geometry("cpu")
+    table = torch.zeros(sum(SIZES) + 1, dtype=torch.int32)
+    before = kernels.LAUNCHES["band_mask_weights"]
+    with pytest.raises(ValueError):
+        kernels.band_mask_weights(hashes, weights, total, table=table,
+                                  sizes=geom[0], offsets=geom[1],
+                                  recips=geom[2], cap=1)
+    with pytest.raises(ValueError, match="need a band, a mask"):
+        kernels.band_mask_weights(hashes, weights, total)
+    with pytest.raises(ValueError, match="bmin <= bmax"):
+        kernels.band_mask_weights(hashes, weights, total, band=(5, 2 ** 64))
+    dgeom = SketchSpec("bit", SIZES).geometry(dev)
+    with pytest.raises(ValueError, match="threshold"):
+        kernels.band_mask_weights(hashes, weights, total, table=table.to(dev),
+                                  sizes=dgeom[0], offsets=dgeom[1],
+                                  recips=dgeom[2], cap=1, threshold=-1)
+    assert kernels.LAUNCHES["band_mask_weights"] == before
+
+
+def test_band_mask_consume_small_on_card(dev, tmp_path):
+    """consume_seqfile_banding, consume_seqfile_with_mask and
+    consume_seqfile_banding_with_mask on the card equal the CPU run: a
+    Countgraph with bigcount (saved bytes), a Counttable and a
+    CyclicCounttable, with Nodegraph, Nodetable, Countgraph and
+    SmallCountgraph masks; a mask on the CPU raises."""
+    from khmer_tpu_torch import (Counttable, CyclicCounttable, Nodetable,
+                                 SmallCountgraph)
+
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, 12)
+    mfa = str(tmp_path / "mask.fa")
+    _write_reads(mfa, 12, n_reads=700, repeats=300)
+    runs = [
+        (Countgraph, "consume_seqfile_with_mask", (), Nodegraph, {}),
+        (Countgraph, "consume_seqfile_with_mask", (), Countgraph,
+         dict(threshold=255, consume_masked=True)),
+        (Countgraph, "consume_seqfile_with_mask", (), SmallCountgraph,
+         dict(threshold=3)),
+        (Counttable, "consume_seqfile_banding", (4, 3), None, {}),
+        (CyclicCounttable, "consume_seqfile_banding", (3, 1), None, {}),
+        (Counttable, "consume_seqfile_banding_with_mask", (4, 2), Nodetable,
+         dict(threshold=1, consume_masked=True)),
+    ]
+    out = []
+    kernels.reset_launches()
+    for d in (dev, "cpu"):
+        got = []
+        for i, (cls, method, args, mcls, kw) in enumerate(runs):
+            t = cls(20, 20011, 4, device=d)
+            if cls is Countgraph:
+                t.set_use_bigcount(True)
+            m = ()
+            if mcls is not None:
+                m = (mcls(20, 20011, 4, device=d),)
+                m[0].consume_seqfile(mfa)
+            got.append(torch.tensor(getattr(t, method)(fa, *args, *m,
+                                                       chunk=1 << 14, **kw)))
+            got += [t.storage.table.cpu(), torch.tensor(t.n_unique_kmers())]
+            path = str(tmp_path / "{}-{}.ct".format(i, d))
+            t.save(path)
+            got.append(torch.from_numpy(np.fromfile(path, np.uint8)))
+        out.append(got)
+        if d == dev:
+            assert kernels.LAUNCHES["band_mask_weights"] > len(runs)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    mask = Nodegraph(20, 20011, 4, device="cpu")
+    with pytest.raises(ValueError, match="mask on cpu"):
+        Countgraph(20, 20011, 4, device=dev).consume_seqfile_with_mask(
+            fa, mask)
