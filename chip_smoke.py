@@ -119,7 +119,7 @@ Phases (any failure exits non-zero; nothing is caught):
      on the phase-4 file; normalize-by-median -p -C 20 --savegraph,
      filter-abund-single -C 2, trim-low-abund -C 3 -Z 18 -V and
      trim-low-abund --loadgraph (the small .ct), all --small-count, on
-     the first 320,000 reads of the phase-5 file (a quarter of it, cut
+     the first 160,000 reads of the phase-5 file (an eighth of it, cut
      for the smoke's time limit); then a CyclicCounttable(20, 1e8, 4):
      consume_seqfile and abundance_distribution of the phase-4 file,
      get_median_count_batch of the first 16,384 phase-5 reads, save,
@@ -158,6 +158,22 @@ Phases (any failure exits non-zero; nothing is caught):
      same run through the plain versions on the card (results, bins,
      n_unique).  Walls, reads/s, device busy shares, K12 launches and
      peak device memory are printed.
+  10. slice 4b's path, the knot-removal workflow of
+     docs/user/partitioning-big-data.md, through the port's script entry
+     points on phase 7's 400,000 reads over 1,000 genomes of which 200
+     carry two of four shared 400-base repeats (one lump): do-partition
+     -k 32 -N 4 -x 1e8 -s 1e5; extract-partitions -X 20000 (the largest
+     group is the lump); on the lump load-graph, make-initial-stoptags,
+     partition-graph --stoptags and find-knots -x 2e8 -N 4;
+     filter-stoptags; then load-graph, partition-graph, merge-,
+     annotate- and extract-partitions of the cut reads.  Held against
+     the same runs of steps 1-4 (through filter-stoptags) through the
+     plain versions on the card (every file after every run identical);
+     the stop tags must not be empty.  K1, K2, K3 and bin_scatter_add
+     must have been launched by this run; walls, device busy shares, K3
+     launches by script, the repartitions' batches, walks and traversals
+     taken again, the stop-tag count, the lump's partitions before and
+     after the filter and peak device memory are printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -245,10 +261,19 @@ PARTITION_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
 # cap, phase 8's cut of the phase-5 file and the kernels its path runs
 CYCLIC_KS = (K, MURMUR_K, 64, 65, 128)
 NIBBLE_CAP = 15
-SMALL_READS = 320_000
+SMALL_READS = 160_000
 SMALL_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
               "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
               "trim_chain", "cyclic_hashes")
+# slice 4b (phase 10): the knot-removal workflow on phase 7's metagenome
+# with KNOT_CARRIERS genomes carrying two of KNOT_REPEATS shared repeats;
+# extract-partitions' groups of KNOT_GROUP reads put the lump in the largest
+KNOT_CARRIERS = 200
+KNOT_REPEATS = 4
+KNOT_REPEAT_LEN = 400
+KNOT_GROUP = 20000
+KNOT_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
+             "bin_scatter_add")
 
 
 def fail(msg):
@@ -934,10 +959,12 @@ def device_share(name, fn, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    # the raw kineto events: building prof.events() from them took longer
+    # than the run after scripts of many small ops (phase 10's)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + \
+                e.duration_ns() / 1e3
     busy = sum(by_name.values()) / 1e6
     if not by_name:
         log("profile {}: wall {:.3f} s; device time not measured (the "
@@ -2283,7 +2310,7 @@ def cyclic_table_run(reads_fa, pairs_fa, dev):
     return out
 
 
-def small_count_runs(workdir, reads_fa, quarter_fa, pairs_fa, dev, profile,
+def small_count_runs(workdir, reads_fa, eighth_fa, pairs_fa, dev, profile,
                      card):
     """Phase 8's runs on `dev`, in `workdir`: their walls (and device busy
     seconds when `profile`), every output file's sha256, reads and bases
@@ -2304,15 +2331,15 @@ def small_count_runs(workdir, reads_fa, quarter_fa, pairs_fa, dev, profile,
          table + [reads_fa, "small.hist"], ["small.hist"]),
         ("normalize-by-median --small-count", normalize_by_median.main,
          table + ["-p", "-C", "20", "--savegraph", "nbm.ct", "-o", "nbm.fa",
-                  quarter_fa], ["nbm.fa", "nbm.ct"]),
+                  eighth_fa], ["nbm.fa", "nbm.ct"]),
         ("filter-abund-single --small-count", filter_abund_single.main,
-         table + ["-C", "2", "-o", "single.fa", quarter_fa], ["single.fa"]),
+         table + ["-C", "2", "-o", "single.fa", eighth_fa], ["single.fa"]),
         ("trim-low-abund --small-count", trim_low_abund.main,
-         table + ["-C", "3", "-Z", "18", "-V", "-o", "trim.fa", quarter_fa],
+         table + ["-C", "3", "-Z", "18", "-V", "-o", "trim.fa", eighth_fa],
          ["trim.fa"]),
         ("trim-low-abund --small-count --loadgraph", trim_low_abund.main,
          ["-q", "--small-count", "--loadgraph", "small.ct", "-C", "3", "-Z",
-          "18", "-V", "-o", "trimlg.fa", quarter_fa], ["trimlg.fa"]),
+          "18", "-V", "-o", "trimlg.fa", eighth_fa], ["trimlg.fa"]),
     ]
     n_unique = []
     counted = Hashtable.n_unique_kmers
@@ -2366,8 +2393,8 @@ def run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4):
     from khmer_tpu_torch.kernels import plain
     from khmer_tpu_torch.primes import get_n_primes_near_x
 
-    quarter_fa = os.path.join(tmp, "quarter.fa")
-    with open(pairs_fa, "rb") as f, open(quarter_fa, "wb") as g:
+    eighth_fa = os.path.join(tmp, "eighth.fa")
+    with open(pairs_fa, "rb") as f, open(eighth_fa, "wb") as g:
         g.write(f.read(SMALL_READS * 114))
     log("phase 8: --small-count scripts on the phase-4 file and on the "
         "first {} reads of the phase-5 file; a CyclicCounttable on the "
@@ -2389,7 +2416,7 @@ def run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4):
     kernels.reset_launches()
     with mock.patch.object(kernels, "sketch_get", sketch_get):
         got = small_count_runs(os.path.join(tmp, "s3b_kernels"), reads_fa,
-                               quarter_fa, pairs_fa, dev, True, card)
+                               eighth_fa, pairs_fa, dev, True, card)
     launches = dict(kernels.LAUNCHES)
     by_hash = dict(kernels.ROW_COUNTS_BY_HASH)
     peak = torch.cuda.max_memory_allocated()
@@ -2415,7 +2442,7 @@ def run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4):
     with mock.patch.multiple(kernels, **{name: getattr(plain, name)
                                          for name in kernels.KERNELS}):
         ref = small_count_runs(os.path.join(tmp, "s3b_plain"), reads_fa,
-                               quarter_fa, pairs_fa, dev, False, card)
+                               eighth_fa, pairs_fa, dev, False, card)
     log("phase 8 plain-version walls (s): {} [{}]".format(
         json.dumps(ref["walls"]), card))
     keys = [k for k in got if k not in ("walls", "busy")]
@@ -2811,6 +2838,254 @@ def run_slice10(card, dev, tmp, reads_fa, pairs_fa, ct, uniq4):
         time.perf_counter() - t_phase, card))
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 10: slice 4b, the knot-removal workflow, at full width
+# ---------------------------------------------------------------------------
+
+
+def make_lump_metagenome(path, seed, n_genomes, n_reads, n_carriers,
+                         n_repeats, repeat_len, readlen=100, err=0.005):
+    """make_metagenome's reads (random genomes of 1-8 kbases, 0.5%
+    substitutions, half reverse-complemented, 112-byte records) with
+    `n_carriers` genomes carrying two of `n_repeats` random repeats of
+    `repeat_len` bases each, one in each half: the carriers join through
+    the repeats into one lump.  Returns (bases, the carriers' bases)."""
+    rng = np.random.default_rng(seed + 10)
+    lens = rng.integers(1000, 8001, n_genomes)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    genome = rng.integers(0, 4, int(offs[-1]), dtype=np.uint8)
+    repeats = rng.integers(0, 4, (n_repeats, repeat_len), dtype=np.uint8)
+    carriers = rng.choice(n_genomes, n_carriers, replace=False)
+    for g in carriers:
+        half = lens[g] // 2
+        for r, lo in zip(rng.choice(n_repeats, 2, replace=False),
+                         (0, half)):
+            at = offs[g] + lo + rng.integers(0, half - repeat_len + 1)
+            genome[at:at + repeat_len] = repeats[r]
+    starts = lens - readlen + 1
+    which = rng.choice(n_genomes, n_reads, p=starts / starts.sum())
+    at = offs[which] + (rng.random(n_reads) * starts[which]).astype(np.int64)
+    reads = genome[at[:, None] + np.arange(readlen)]
+    hit = rng.random(reads.shape, dtype=np.float32) < err
+    reads[hit] = (reads[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    rc = rng.random(n_reads) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    rec = np.empty((n_reads, 12 + readlen), np.uint8)
+    rec[:, 0:2] = np.frombuffer(b">m", np.uint8)
+    pows = 10 ** np.arange(7, -1, -1, dtype=np.int64)
+    rec[:, 2:10] = (np.arange(n_reads)[:, None] // pows) % 10 + ord("0")
+    rec[:, 10] = ord("\n")
+    rec[:, 11:11 + readlen] = np.frombuffer(b"ACGT", np.uint8)[reads]
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+    return int(offs[-1]), int(lens[carriers].sum())
+
+
+def knot_steps(fa):
+    """The documented knot-removal workflow's runs (steps 1-5), as (name,
+    script module, argv); the table cut to -x 1e8 (BitStorage: a u32 bin a
+    bit) and extract-partitions' group size to -X KNOT_GROUP."""
+    from khmer_tpu_torch.scripts import (annotate_partitions, do_partition,
+                                         extract_partitions, filter_stoptags,
+                                         find_knots, load_graph,
+                                         make_initial_stoptags,
+                                         merge_partitions, partition_graph)
+
+    graph = ["-k", str(PARTITION_K), "-N", "4", "-x", repr(TABLE_SIZE)]
+    name = os.path.basename(fa)
+    return [
+        ("do-partition", do_partition.main,
+         graph + ["-s", "1e5", "g", fa]),
+        ("extract-partitions", extract_partitions.main,
+         ["-X", str(KNOT_GROUP), "g", name + ".part"]),
+        ("load-graph", load_graph.main, graph + ["lump", "lump.fa"]),
+        ("make-initial-stoptags", make_initial_stoptags.main, ["lump"]),
+        ("partition-graph --stoptags", partition_graph.main,
+         ["--stoptags", "lump.stoptags", "lump"]),
+        ("find-knots", find_knots.main, ["-x", "2e8", "-N", "4", "lump"]),
+        ("filter-stoptags", filter_stoptags.main,
+         ["lump.stoptags", "lump.fa"]),
+        # step 5, on the card alone: phase 7's scripts on the cut reads
+        ("load-graph (filtered)", load_graph.main,
+         graph + ["lumpfilt", "lump.fa.stopfilt"]),
+        ("partition-graph (filtered)", partition_graph.main, ["lumpfilt"]),
+        ("merge-partitions (filtered)", merge_partitions.main, ["lumpfilt"]),
+        ("annotate-partitions (filtered)", annotate_partitions.main,
+         ["lumpfilt", "lump.fa.stopfilt"]),
+        ("extract-partitions (filtered)", extract_partitions.main,
+         ["lumpfilt-out", "lump.fa.stopfilt.part"])]
+
+
+KNOT_CHECKED = 7  # steps 1-4 (through filter-stoptags): held to plain runs
+
+
+def knot_scripts(workdir, fa, dev, profile, card, steps):
+    """The first `steps` runs of knot_steps on `dev`, in `workdir`; after
+    extract-partitions the largest group file becomes lump.fa.  Returns
+    walls, device busy seconds (when `profile`), K3 launches by script,
+    _KnotWalk's numbers by repartition call, and after each run the
+    sha256 of every file in workdir."""
+    import shutil
+
+    from khmer_tpu_torch import kernels, partitioning
+
+    os.makedirs(workdir)
+    out = {"walls": {}, "busy": {}, "k3": {}, "files": {}, "knots": []}
+    repartition = partitioning.SubsetPartition.repartition_largest_partition
+
+    def keep_stats(subset, *args, **kwargs):
+        size = repartition(subset, *args, **kwargs)
+        out["knots"].append(dict(subset.knot_stats, size=size))
+        return size
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for name, fn, argv in knot_steps(fa)[:steps]:
+            err = io.StringIO()
+            run = lambda: fn(argv, device=dev)  # noqa: E731
+            before = kernels.LAUNCHES["sketch_get"]
+            sync(dev)
+            try:
+                with contextlib.redirect_stderr(err), mock.patch.object(
+                        partitioning.SubsetPartition,
+                        "repartition_largest_partition", keep_stats):
+                    if profile:
+                        wall, busy = device_share(name, run, card)
+                        out["busy"][name] = busy
+                    else:
+                        t0 = time.perf_counter()
+                        run()
+                        sync(dev)
+                        wall = time.perf_counter() - t0
+            except BaseException:
+                sys.stderr.write(err.getvalue()[-20000:])
+                raise
+            out["walls"][name] = wall
+            out["k3"][name] = kernels.LAUNCHES["sketch_get"] - before
+            if name == "make-initial-stoptags":
+                out["initial_stop_tags"] = \
+                    (os.path.getsize("lump.stoptags") - 18) // 8
+            if name == "extract-partitions":
+                groups = sorted((os.path.getsize(f), f)
+                                for f in os.listdir(".") if ".group" in f)
+                shutil.copy(groups[-1][1], "lump.fa")
+                out["groups"] = [g for _, g in groups]
+            log("phase 10 {} done, {:.1f} s into the smoke".format(
+                name, time.perf_counter() - STARTED))
+            out["files"][name] = {}
+            for f in sorted(os.listdir(".")):
+                if f != os.path.basename(fa):
+                    with open(f, "rb") as fh:
+                        out["files"][name][f] = hashlib.sha256(
+                            fh.read()).hexdigest()
+            gc.collect()
+        out["sizes"] = {f: os.path.getsize(f) for f in sorted(os.listdir("."))}
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def partitions_in(part_file):
+    """The distinct partition ids of an annotated file and its reads."""
+    pids = {}
+    with open(part_file, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                pid = int(line.rsplit(b"\t", 1)[1])
+                pids[pid] = pids.get(pid, 0) + 1
+    return pids
+
+
+def run_knots(card, dev, tmp, seed):
+    """Phase 10: the knot-removal workflow on a metagenome with a lump,
+    through the port's scripts on the card, steps 1-4 held to the same
+    runs through the plain versions; returns the path's launches."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    wd = os.path.join(tmp, "p10")
+    os.makedirs(wd)
+    fa = os.path.join(wd, "reads.fa")
+    t_phase = time.perf_counter()
+    bases, lump_bases = make_lump_metagenome(
+        fa, seed, PARTITION_GENOMES, PARTITION_READS, KNOT_CARRIERS,
+        KNOT_REPEATS, KNOT_REPEAT_LEN)
+    log("phase 10: {} reads of 100 bp over {} random genomes of 1-8 kbases "
+        "({} bases), {} of them ({} bases) carrying two of {} repeats of {} "
+        "bases; 0.5% substitutions, half reverse-complemented, {:.1f} s to "
+        "write".format(PARTITION_READS, PARTITION_GENOMES, bases,
+                       KNOT_CARRIERS, lump_bases, KNOT_REPEATS,
+                       KNOT_REPEAT_LEN, time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = knot_scripts(os.path.join(wd, "kernels"), fa, dev, True, card,
+                       len(knot_steps(fa)))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 10 launches: {}".format(json.dumps(launches)))
+    log("phase 10 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in KNOT_PATH if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the knot-removal path: {}".format(
+            missing))
+    lump_reads = os.path.getsize(os.path.join(wd, "kernels", "lump.fa")) \
+        // 112
+    for name, wall in got["walls"].items():
+        busy = got["busy"].get(name)
+        log("{}: {:.3f} s (profiled), device busy {}, K3 launches {} "
+            "[{}]".format(name, wall, "not measured" if busy is None else
+                          "{:.3f} s = {:.1f}%".format(busy,
+                                                      100 * busy / wall),
+                          got["k3"][name], card))
+    for i, st in enumerate(got["knots"]):
+        log("repartition_largest_partition call {}: {}".format(
+            i, json.dumps(st)))
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = knot_scripts(os.path.join(wd, "plain"), fa, dev, False, card,
+                           KNOT_CHECKED)
+    log("phase 10 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    for step, files in ref["files"].items():
+        mine = got["files"][step]
+        bad = sorted(f for f in set(files) | set(mine)
+                     if files.get(f) != mine.get(f))
+        if bad:
+            fail("knot-removal path differs from its plain run after {} in "
+                 "{}".format(step, "; ".join(bad[:10])))
+    final = got["files"]["filter-stoptags"]
+    n_stop = (got["sizes"]["lump.stoptags"] - 18) // 8
+    if not n_stop or "lump.fa.stopfilt" not in final or \
+            not any(f.endswith(".pmap.processed") for f in final):
+        fail("phase 10 found {} stop tags".format(n_stop))
+    before = partitions_in(os.path.join(wd, "kernels", "reads.fa.part"))
+    after = partitions_in(os.path.join(wd, "kernels",
+                                       "lump.fa.stopfilt.part"))
+    lump_pids = set()
+    with open(os.path.join(wd, "kernels", "lump.fa"), "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                lump_pids.add(int(line.rsplit(b"\t", 1)[1]))
+    log("kernels == plain on the card: every file after each of steps 1-4 "
+        "({} files after filter-stoptags); do-partition's .part sha256 {}; "
+        "{} stop tags (initial {}); the lump: {} reads in {} ({} groups), "
+        "{} partitions before the filter (the largest {} reads), {} after "
+        "it (the largest {} reads), {} filtered reads kept; sizes {}".format(
+            len(final), got["files"]["do-partition"]["reads.fa.part"],
+            n_stop, got["initial_stop_tags"], lump_reads, got["groups"][-1],
+            len(got["groups"]), len(lump_pids),
+            max(before[p] for p in lump_pids), len(after),
+            max(after.values()) if after else 0, sum(after.values()),
+            json.dumps(got["sizes"])))
+    log("phase 10: {:.1f} s with its plain runs and checks [{}]".format(
+        time.perf_counter() - t_phase, card))
+    return launches
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2850,6 +3125,7 @@ def main():
         small = run_small_count(card, dev, tmp, reads_fa, pairs_fa, uniq4)
         check_filter_kernel(dev, reads_fa, ct, rec)
         slice10 = run_slice10(card, dev, tmp, reads_fa, pairs_fa, ct, uniq4)
+        run_knots(card, dev, tmp, args.seed)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by

@@ -27,7 +27,13 @@ masked consume (``consume_seqfile_banding``, ``consume_seqfile_with_mask``,
 (slices 2b and 3c): ``n_tables``, ``get_kmers``, ``get_raw_tables``,
 ``consume_fasta``, ``Nodegraph.update``, the positional dumps, the hash
 and prime helpers, FastxParser (``parsing``), ``thread_utils``, Kmer,
-HashSet and the 1.x names Hashbits, new_hashbits and new_hashtable.
+HashSet and the 1.x names Hashbits, new_hashbits and new_hashtable;
+traversal, stop tags and the knot-removal workflow (slice 4b): the graph
+queries (``traverse_from_kmer``, ``calc_connected_graph_size``,
+``find_high_degree_nodes``, ...), ``consume_seqfile_and_tag_with_stoptags``,
+``repartition_largest_partition``, ``sweep_for_tags``, ``find_unpart``,
+PrePartitionInfo and the scripts make-initial-stoptags, find-knots,
+filter-stoptags and do-partition.
 """
 
 from collections import namedtuple
@@ -54,13 +60,14 @@ from khmer_tpu_torch.ops.hashing import (
     reverse_hash,
 )
 from khmer_tpu_torch.parsing import FastxParser
-from khmer_tpu_torch.partitioning import SubsetPartition
+from khmer_tpu_torch.partitioning import PrePartitionInfo, SubsetPartition
 from khmer_tpu_torch.primes import get_n_primes_near_x, is_prime
 
 __all__ = ["Countgraph", "Counttable", "CyclicCounttable", "FastxParser",
            "FastxReader", "HLLCounter", "HashSet", "Hashbits", "Hashgraph",
-           "Kmer", "Nodegraph", "Nodetable", "Read", "ReadParser",
-           "SmallCountgraph", "SmallCounttable", "SubsetPartition",
+           "Kmer", "Nodegraph", "Nodetable", "PrePartitionInfo", "Read",
+           "ReadParser", "SmallCountgraph", "SmallCounttable",
+           "SubsetPartition",
            "__version__", "__version_cpp__", "calc_expected_collisions",
            "extract_countgraph_info", "extract_nodegraph_info",
            "forward_hash", "forward_hash_no_rc", "get_n_primes_near_x",

@@ -418,6 +418,8 @@ class Hashtable:
 
     def _hash_array(self, sequence):
         """All k-mer hashes of a sequence as a numpy uint64 array."""
+        if len(sequence) < self._ksize:
+            return np.zeros(0, np.uint64)
         h, _ = self._lanes(sequence)
         return _u64.to_numpy(h[: len(sequence) - self._ksize + 1])
 
@@ -536,7 +538,7 @@ class Hashtable:
             ms = mask.storage
             filters.update(zip(("table", "sizes", "offsets", "recips"),
                                (ms.table, *ms._geom)))
-            filters.update(cap=ms.read_cap(), threshold=threshold,
+            filters.update(cap=ms.read_cap(), threshold=_as_u32(threshold),
                            consume_masked=consume_masked)
         stats = _StreamStats()
         total = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -544,6 +546,11 @@ class Hashtable:
             h, w = self._chunk_lanes(codes, m)
             self.storage.add_lanes(
                 h, kernels.band_mask_weights(h, w, total, **filters))
+        if isinstance(parser_or_filename, str) and not stats.n_reads:
+            # khmer_tpu reads these through its parser, which refuses a
+            # file without a record (read_parsers.cc:258)
+            raise OSError("{} does not contain any sequences!".format(
+                parser_or_filename))
         return stats.n_reads, int(total.item())
 
     def consume_seqfile_with_mask(self, parser_or_filename, mask,
@@ -996,7 +1003,7 @@ class Hashtable:
     @classmethod
     def load(cls, file_name, device=None):
         store, ksize = oxli_format.load_storage(
-            file_name, cls.storage_class.kind, device=device)
+            file_name, (cls.storage_class.kind,), device=device)
         obj = cls.__new__(cls)
         obj._ksize = ksize
         obj.storage = store
@@ -1006,6 +1013,17 @@ class Hashtable:
     def _post_load(self):
         """Set what a subclass keeps beside the table, for a table made
         without __init__ (a load, convert.table_from_numpy)."""
+
+
+def _as_u32(value):
+    """A mask threshold as khmer_tpu passes it to the device, a uint32
+    (jnp.asarray(threshold, U32), hashtable.py:1331): a Python integer
+    outside [0, 2**32) is refused before the input is read, and a float
+    is cut toward zero (1.5 -> 1)."""
+    if isinstance(value, int) and not 0 <= value < 1 << 32:
+        raise OverflowError(
+            "Python integer {} out of bounds for uint32".format(value))
+    return int(value)
 
 
 def _median_avg_std(counts):

@@ -180,6 +180,11 @@ class HLLCounter:
                                    self._ksize, self._p, self._m,
                                    self._counters)
             n_reads, n_consumed, _ = reader.stats()
+        if not n_reads:
+            # khmer_tpu reads through its parser, which refuses a file
+            # without a record (hllcounter.py:201)
+            raise OSError("{} does not contain any sequences!".format(
+                filename))
         return int(n_reads), int(n_consumed)
 
     def _consume_records(self, filename):

@@ -121,18 +121,19 @@ def save_storage(filename, ksize, storage):
                 f.write(struct.pack("<QH", h, bc[h]))
 
 
-def load_storage(filename, expected_kind, device=None):
-    """Load an OXLI table file of the expected kind ('byte', 'nibble' or
-    'bit'); returns (storage, ksize)."""
+def load_storage(filename, expected_kinds=("byte", "bit", "nibble"),
+                 device=None):
+    """Load an OXLI table file of one of the expected kinds ('byte',
+    'nibble' or 'bit'); returns (storage, ksize)."""
     try:
-        return _load_storage(filename, expected_kind, device)
+        return _load_storage(filename, expected_kinds, device)
     except EOFError as err:
         # a truncated gzip stream must fail like any truncated file
         raise OSError("truncated compressed file {!r}: {}".format(
             filename, err))
 
 
-def _load_storage(filename, expected_kind, device):
+def _load_storage(filename, expected_kinds, device):
     from khmer_tpu_torch.storage import BY_KIND
 
     with _open_in(filename) as f:
@@ -149,7 +150,7 @@ def _load_storage(filename, expected_kind, device):
                 "from {}; should be {}".format(version, filename,
                                                SAVED_FORMAT_VERSION))
         kind = _KINDS.get(ht_type)
-        if kind != expected_kind:
+        if kind not in expected_kinds:
             raise OxliFileError(
                 "Incorrect file format type {} while reading k-mer file "
                 "from {}".format(ht_type, filename))

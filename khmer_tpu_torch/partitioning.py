@@ -1,16 +1,20 @@
 """Tag-graph partitioning: SubsetPartition (reference src/oxli/subset.cc).
 
-Port of khmer_tpu/partitioning.py:39-645, without sweep_for_tags,
-find_unpart and repartition_largest_partition, which come with a later
-slice of the port.  Partitions are connected components of the sparse
-tag graph: two tags connect when a breadth-limited search (max breadth
-2 * tag_density + 1, subset.cc:349) in k-mer space reaches one from the
-other.  Every search level of a batch of seed tags is one count probe
-of all its candidate neighbours (traversal._expand through
-Storage.get_lanes, kernel K3 on the card); the host keeps each seed's
-visited set and the union of partition ids.  do_partition_device takes
-the same searches' star edges to kernel K10
-(partition_device.connected_components) instead.
+Port of khmer_tpu/partitioning.py.  Partitions are connected components
+of the sparse tag graph: two tags connect when a breadth-limited search
+(max breadth 2 * tag_density + 1, subset.cc:349) in k-mer space reaches
+one from the other.  Every search level of a batch of seed tags is one
+count probe of all its candidate neighbours (traversal._expand through
+Storage.get_lanes, kernel K3 on the card); the host keeps the union of
+partition ids.  do_partition_device takes the same searches' star edges
+to kernel K10 (partition_device.connected_components) instead.
+
+repartition_largest_partition, which finds the knots' stop tags, is
+sequential in khmer_tpu: each tag's traversal respects the stop tags the
+tags before it added, and each keeper's count walk reads and adds to a
+counting table k-mer by k-mer.  _KnotWalk keeps that order exactly with a
+batch of traversals and one read of the counting table a batch (see its
+docstring).
 
 Parity notes (as khmer_tpu):
   * partition ids start at 2 (subset.cc:85) and the first partition id
@@ -28,15 +32,20 @@ import struct
 import numpy as np
 import torch
 
-from khmer_tpu_torch import _u64
+from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch.io.oxli_format import (OxliFileError,
                                             SAVED_FORMAT_VERSION,
                                             SAVED_SIGNATURE, SAVED_SUBSET)
-from khmer_tpu_torch.traversal import _expand, fr_from_hashes
+from khmer_tpu_torch.ops import encode as enc
+from khmer_tpu_torch.traversal import (MAX_KEEPER_SIZE, _expand, _member,
+                                       _pair_runs, _window_fr, fr_from_hash,
+                                       fr_from_hashes, keeper_arrays,
+                                       neighbors_fr, stop_keys)
 
 BIG_TRAVERSALS_ARE = 200  # reference subset.cc:54
 SEED_BATCH = 1 << 17  # seed tags searched together (any batch: the same)
 ANNOTATE_BATCH = 16384  # reads hashed together by output_partitioned_file
+KNOT_BATCH = 1024  # tags traversed together by repartition_largest_partition
 
 
 class PrePartitionInfo:
@@ -47,18 +56,6 @@ class PrePartitionInfo:
     def __init__(self, kmer, tagged_kmers):
         self.kmer = kmer
         self.tagged_kmers = tagged_kmers
-
-
-def _member(sorted_keys, vals):
-    """Which int64 hash patterns `vals` are among the hashes whose
-    ascending sort keys (_u64.sort_key) are `sorted_keys`."""
-    if not sorted_keys.numel():
-        return torch.zeros(vals.numel(), dtype=torch.bool,
-                           device=vals.device)
-    key = _u64.sort_key(vals)
-    pos = torch.searchsorted(sorted_keys, key).clamp(
-        max=sorted_keys.numel() - 1)
-    return sorted_keys[pos] == key
 
 
 def _sorted_u64(values):
@@ -86,18 +83,23 @@ class SubsetPartition:
                                         stop_big_traversals)[0]
 
     def find_all_tags_batch(self, seeds, break_on_stop_tags=False,
-                            stop_big_traversals=False):
+                            stop_big_traversals=False, min_count=None,
+                            max_count=None):
         """Per-seed PrePartitionInfo (the set of tags reached) for a batch
-        of seed hashes."""
+        of seed hashes.  With min_count/max_count, the searches stop at
+        k-mers whose abundance is outside the range
+        (find_all_tags_truncate_on_abundance, subset.cc:521-619)."""
         sid, canon = self._tags_reached(seeds, break_on_stop_tags,
-                                        stop_big_traversals)
+                                        stop_big_traversals, min_count,
+                                        max_count)
         out_sets = [set() for _ in seeds]
         for s, c in zip(sid.tolist(), _u64.to_numpy(canon).tolist()):
             out_sets[s].add(c)
         return [PrePartitionInfo(int(s), t) for s, t in zip(seeds, out_sets)]
 
     def _tags_reached(self, seeds, break_on_stop_tags=False,
-                      stop_big_traversals=False):
+                      stop_big_traversals=False, min_count=None,
+                      max_count=None):
         """The bounded searches of khmer_tpu's find_all_tags_batch from
         every seed of a batch at once, on the graph's device: (seed
         index, tag) pairs as int64 tensors (the tag a uint64 bit
@@ -121,8 +123,9 @@ class SubsetPartition:
         max_breadth = 2 * graph.tag_density + 1
         n = len(seeds)
         tag_keys = self._tag_keys()
-        stop_keys = self._keys(self._sorted_stops_cache()) \
+        stops = self._keys(self._sorted_stops_cache()) \
             if break_on_stop_tags else None
+        by_count = min_count is not None or max_count is not None
         visited_total = torch.zeros(n, dtype=torch.int64, device=dev)
         aborted = torch.zeros(n, dtype=torch.bool, device=dev)
         empty = torch.zeros(0, dtype=torch.int64, device=dev)
@@ -141,12 +144,15 @@ class SubsetPartition:
                 if not cf.numel():
                     break
             canon = _u64.umin(cf, cr)
-            if break_on_stop_tags:
-                lanes = torch.nonzero(~_member(stop_keys, canon)).squeeze(1)
-                if not lanes.numel():
-                    break
-            else:
-                lanes = torch.arange(canon.numel(), device=dev)
+            # stopped and out-of-range k-mers are not visited
+            ok = ~_member(stops, canon)
+            if by_count:
+                counts = _counts(graph.storage, canon)
+                ok &= counts >= (0 if min_count is None else min_count)
+                ok &= counts <= (0xFFFF if max_count is None else max_count)
+            lanes = torch.nonzero(ok).squeeze(1)
+            if not lanes.numel():
+                break
             # the candidates' distinct (seed, k-mer) pairs that are not
             # among the pairs of the last two levels: a stable sort puts
             # an old pair before its candidates
@@ -337,6 +343,21 @@ class SubsetPartition:
                     stop_big_traversals):
                 self.assign_partition_id(ppi.kmer, ppi.tagged_kmers)
 
+    def do_partition_with_abundance(self, first_kmer=0, last_kmer=0,
+                                    min_count=0, max_count=0xFFFF,
+                                    break_on_stop_tags=False,
+                                    stop_big_traversals=False):
+        """Streaming-partitioning variant: the searches stop at k-mers
+        whose abundance is outside [min_count, max_count]
+        (subset.cc:679-734)."""
+        span = self._span(first_kmer, last_kmer)
+        for i in range(0, span.size, SEED_BATCH):
+            for ppi in self.find_all_tags_batch(
+                    span[i: i + SEED_BATCH].tolist(), break_on_stop_tags,
+                    stop_big_traversals, min_count=min_count,
+                    max_count=max_count):
+                self.assign_partition_id(ppi.kmer, ppi.tagged_kmers)
+
     def do_partition_device(self, break_on_stop_tags=False,
                             stop_big_traversals=False, mesh=None):
         """The device engine (khmer_tpu/partitioning.py:350-413): the
@@ -424,6 +445,33 @@ class SubsetPartition:
         sizes = [(p, s) for p, s in sorted(cm.items()) if s >= min_size]
         return sizes, n_unassigned
 
+    def partition_size_distribution(self):
+        sizes, n_unassigned = self.partition_sizes()
+        d = {}
+        for _, s in sizes:
+            d[s] = d.get(s, 0) + 1
+        return sorted(d.items()), n_unassigned
+
+    def partition_average_coverages(self, counting):
+        """(partition id, mean count of its tags in `counting`), the mean
+        rounded down, by partition id; the tags' counts in one read."""
+        items = [(t, p) for t, p in self.partition_map.items()
+                 if p is not None]
+        counts = counting.storage.get_batch(
+            np.array([t for t, _ in items], np.uint64)).tolist()
+        sums = {}
+        ns = {}
+        for (_, pid), c in zip(items, counts):
+            sums[pid] = sums.get(pid, 0) + c
+            ns[pid] = ns.get(pid, 0) + 1
+        return sorted((p, sums[p] // ns[p]) for p in sums)
+
+    def report_on_partitions(self):
+        n_partitions, n_unassigned = self.count_partitions()
+        print("%d tags total" % len(self.graph.all_tags))
+        print("%d partitions total" % n_partitions)
+        print("%d unassigned tags" % n_unassigned)
+
     # -- persistence (byte parity: subset.cc:1158-1229) -------------------
 
     def save_partitionmap(self, filename):
@@ -443,6 +491,28 @@ class SubsetPartition:
 
     def load_partitionmap(self, filename):
         self.merge_from_disk(filename)
+
+    # legacy_partitioning.pyx load()
+    @staticmethod
+    def load(filename, graph):
+        subset = SubsetPartition(graph)
+        subset.merge_from_disk(filename)
+        return subset
+
+    def _validate_partitionmap(self):
+        """Sanity-check the tag->partition map (reference
+        subset.cc _validate_pmap: every mapped partition id must be
+        registered in the reverse map)."""
+        for pid in self.partition_map.values():
+            if pid is not None and pid not in self._rev:
+                raise RuntimeError(
+                    "invalid partition map: pid {} unregistered".format(
+                        pid))
+
+    def _validate_pmap(self):
+        for pid in self.partition_map.values():
+            if pid is not None and not (1 <= pid < self.next_partition_id):
+                raise ValueError("invalid partition map")
 
     def merge_from_disk(self, filename):
         """Merge a pmap file: equal disk ids unify tags locally
@@ -562,16 +632,333 @@ class SubsetPartition:
                 flush(pending, out)
         return len(n_partitions)
 
+    # -- sweep (annotate arbitrary reads by neighbourhood) ------------------
 
-def _pair_runs(sids, canons):
-    """A stable order of the (sid, canon) pairs by sid, then canon
-    (unsigned), and a bool per position of it: the first of its pair."""
-    order = torch.argsort(_u64.sort_key(canons), stable=True)
-    order = order[torch.argsort(sids[order], stable=True)]
-    s_o, c_o = sids[order], canons[order]
-    first = torch.ones(order.numel(), dtype=torch.bool, device=sids.device)
-    first[1:] = (s_o[1:] != s_o[:-1]) | (c_o[1:] != c_o[:-1])
-    return order, first
+    def sweep_for_tags(self, seq, range_=0, break_on_stop_tags=False,
+                       stop_big_traversals=False):
+        """BFS from every k-mer of the read out to nearby tags
+        (subset.cc:427-520; perimeter abort at 200*len).
+
+        range_=0 restricts the sweep to the read's own k-mers (the
+        reference's range==0 semantics); otherwise range_ bounds the
+        BFS breadth.  One probe a level; the visited set and the abort
+        are kept lane by lane on the host, as in khmer_tpu."""
+        graph = self.graph
+        k = graph.ksize()
+        all_tags = graph.all_tags
+        stop_tags = graph.stop_tags
+        big = BIG_TRAVERSALS_ARE * len(seq)
+        tagged = set()
+        keeper = set()
+        if len(seq) < k:
+            return tagged
+        f, r = _window_fr(enc.encode_sequence(seq), k)
+        cf = _u64.as_tensor(f, graph.device)
+        cr = _u64.as_tensor(r, graph.device)
+        breadth = 0
+        while cf.numel():
+            expand_rows = []
+            for i, c in enumerate(_u64.to_numpy(_u64.umin(cf, cr)).tolist()):
+                if stop_big_traversals and len(keeper) > big:
+                    break
+                if c in keeper:
+                    continue
+                if break_on_stop_tags and c in stop_tags:
+                    continue
+                keeper.add(c)
+                if c in all_tags:
+                    tagged.add(c)
+                    continue
+                if breadth >= range_:
+                    continue
+                expand_rows.append(i)
+            if not expand_rows:
+                break
+            idx = torch.tensor(expand_rows, device=graph.device)
+            cf, cr, _, _ = _expand(graph, cf[idx], cr[idx], k)
+            breadth += 1
+        return tagged
+
+    # -- repartition / stop-tag generation --------------------------------
+
+    def find_unpart(self, infilename, traverse, stop_big_traversals):
+        """Consume, tag, and partition reads not yet in any partition
+        (khmer_tpu's reconstruction of the reference's find_unpart,
+        _cpy_khmer.cc:1831-1860): a read whose in-read tags already carry
+        a partition is skipped; any other read is consumed and tagged,
+        counted as a singleton, and its tags are partitioned together --
+        joined with every tag its tags' searches reach when `traverse`
+        is set, alone otherwise.  Returns the singleton count.  Read by
+        read, as each read's consume changes what the next one sees."""
+        from khmer_tpu_torch.io.fastx import FastxReader
+
+        graph = self.graph
+        n_singletons = 0
+        for read in FastxReader(infilename):
+            seq = read.cleaned_seq
+            if len(seq) < graph.ksize():
+                continue
+            hashes = graph._hash_array(seq).tolist()
+            read_tags = {h for h in hashes if h in graph.all_tags}
+            if any(self.partition_map.get(t) is not None
+                   for t in read_tags):
+                continue
+            graph.consume_and_tag(seq, read_tags)
+            read_tags |= {h for h in hashes if h in graph.all_tags}
+            n_singletons += 1
+            if not read_tags:
+                continue
+            if traverse:
+                for ppi in self.find_all_tags_batch(
+                        sorted(read_tags), False, stop_big_traversals):
+                    read_tags |= {int(t) for t in ppi.tagged_kmers}
+            self.assign_partition_id(next(iter(read_tags)), read_tags)
+        return n_singletons
+
+    def repartition_largest_partition(self, distance, threshold, frequency,
+                                      counting):
+        """Find the largest partition, traverse from its tags stopping
+        high-abundance k-mers into stop_tags, then re-partition
+        (subset.cc:1340-1548); returns the largest partition's size
+        after.  The traversals and count walk run in _KnotWalk, which
+        keeps khmer_tpu's tag-by-tag order; its numbers are left in
+        self.knot_stats."""
+        sizes, _ = self.partition_sizes()
+        if not sizes:
+            return 0
+        biggest = max(sizes, key=lambda ps: ps[1])[0]
+        tags = [t for t, p in self.partition_map.items() if p == biggest]
+        walk = _KnotWalk(self.graph, counting, distance, threshold,
+                         frequency)
+        walk.run(tags)
+        self.knot_stats = walk.stats
+        # clear this partition's assignments and re-partition its tags
+        for tag in tags:
+            self.partition_map.pop(tag, None)
+        self._rev.pop(biggest, None)
+        span = sorted(tags)
+        for i in range(0, len(span), SEED_BATCH):
+            for ppi in self.find_all_tags_batch(
+                    span[i: i + SEED_BATCH], break_on_stop_tags=True,
+                    stop_big_traversals=True):
+                self.assign_partition_id(ppi.kmer, ppi.tagged_kmers)
+        sizes, _ = self.partition_sizes()
+        next_sizes = sorted((s for _, s in sizes), reverse=True)
+        return next_sizes[0] if next_sizes else 0
+
+
+class _KnotWalk:
+    """repartition_largest_partition's loop over the largest partition's
+    tags (khmer_tpu/partitioning.py:760-767): each tag's keeper is
+    traverse_from_kmer(tag, distance) under the stop tags of that moment,
+    and a keeper of at least `threshold` k-mers is walked in its set
+    order: a k-mer whose count in `counting` exceeds `frequency` becomes
+    a stop tag, any other has its count raised by one.
+
+    khmer_tpu does that one tag, one level and one k-mer at a time.  Here
+    KNOT_BATCH tags are traversed together on the device under the stop
+    tags as the batch starts (traversal._keeper_pairs: one probe a level
+    for the batch), and the counting table's bins of every k-mer of the
+    keepers that reach `threshold` are read once (K3, one call a table).
+    The batch is then walked on the host in khmer_tpu's order:
+
+    * a keeper that holds a stop tag added since the batch started is
+      traversed again under the stop tags of its turn.  More stop tags
+      only take k-mers away (a k-mer reached within `distance` avoiding
+      them was reached before), and each k-mer the new traversal expands
+      was expanded by the first, so the first keeper is the set of
+      existing, not stopped k-mers it can meet: the new traversal runs on
+      the host over it.  A keeper cut at MAX_KEEPER_SIZE is traversed
+      again on the device.  A keeper below `threshold` stays below it.
+    * a count is the bins as read plus the adds made since, kept per bin,
+      so that k-mers sharing a bin see each other's adds: a keeper whose
+      k-mers share no bin is decided at once, any other k-mer by k-mer.
+    * the batch's adds go to the counting table in one call (K2), in
+      walk order, as the batch ends."""
+
+    def __init__(self, graph, counting, distance, threshold, frequency):
+        self.graph = graph
+        self.store = counting.storage
+        self.distance = distance
+        self.threshold = threshold
+        self.frequency = frequency
+        self.cap = self.store.read_cap()
+        spec = self.store.spec
+        self.sizes = np.array(spec.tablesizes, np.uint64)
+        self.offsets = np.array(spec.bin_offsets, np.uint64)
+        self.stats = dict(tags=0, batches=0, walked=0, retraced=0,
+                          kmers_walked=0, stop_tags_added=0, bins_read=0)
+
+    def run(self, tags):
+        k = self.graph.ksize()
+        self.stats["tags"] += len(tags)
+        for i in range(0, len(tags), KNOT_BATCH):
+            self._batch(tags[i: i + KNOT_BATCH], k)
+
+    def _batch(self, tags, k):
+        graph = self.graph
+        self.stats["batches"] += 1
+        keepers, ends = keeper_arrays(
+            graph, [fr_from_hash(t, k) for t in tags], self.distance,
+            MAX_KEEPER_SIZE, stop_keys(graph))
+        starts = np.concatenate([[0], ends[:-1]])
+        walk = np.nonzero(ends - starts >= self.threshold)[0].tolist()
+        if not walk:
+            return
+        self._reset()
+        self._read_bins(np.unique(np.concatenate(
+            [keepers[starts[j]:ends[j]] for j in walk])))
+        added = set()
+        adds = []
+        for j in walk:
+            seg = keepers[starts[j]:ends[j]]
+            keeper = set(seg.tolist())
+            if added and not added.isdisjoint(keeper):
+                keeper = self._retrace(tags[j], seg, k)
+                if len(keeper) < self.threshold:
+                    continue
+            stops, add = self._walk(keeper)
+            added.update(stops)
+            graph.stop_tags.update(stops)
+            adds.append(add)
+        h = np.concatenate(adds)
+        if h.size:
+            dev = self.store.device
+            self.store.add_lanes(_u64.as_tensor(h, dev),
+                                 torch.ones(h.size, dtype=torch.int32,
+                                            device=dev))
+
+    def _reset(self):
+        """Forget the bins read: the table changes as a batch ends."""
+        t = self.sizes.size
+        self.kmers = np.zeros(0, np.uint64)   # sorted
+        self.cid = np.zeros((t, 0), np.int64)  # their bins, compact ids
+        self.gids = np.zeros(0, np.uint64)    # sorted global bin ids
+        self.base = np.zeros(0, np.int64)     # bin values as read
+        self.delta = np.zeros(0, np.int64)    # adds since
+
+    def _read_bins(self, new):
+        """Read the bins of the k-mers `new` (sorted, distinct, none read
+        yet) in every table: K3 with the one table's geometry."""
+        if not new.size:
+            return
+        st = self.store
+        h = _u64.as_tensor(new, st.device)
+        sizes, offsets, recips = st._geom
+        vals = np.stack([kernels.sketch_get(
+            st.table, h, sizes[t:t + 1], offsets[t:t + 1],
+            recips[t:t + 1], 0xFFFF).cpu().numpy().astype(np.int64)
+            for t in range(self.sizes.size)])
+        gid = new[None, :] % self.sizes[:, None] + self.offsets[:, None]
+        gids = np.union1d(self.gids, gid.ravel())
+        remap = np.searchsorted(gids, self.gids)
+        base = np.zeros(gids.size, np.int64)
+        delta = np.zeros(gids.size, np.int64)
+        base[remap] = self.base
+        delta[remap] = self.delta
+        cid = np.searchsorted(gids, gid)
+        base[cid] = vals
+        kmers = np.concatenate([self.kmers, new])
+        cid = np.concatenate([remap[self.cid], cid], axis=1)
+        order = np.argsort(kmers, kind="stable")
+        self.kmers, self.cid = kmers[order], cid[:, order]
+        self.gids, self.base, self.delta = gids, base, delta
+        self.stats["bins_read"] += int(new.size) * self.sizes.size
+
+    def _retrace(self, tag, seg, k):
+        """traverse_from_kmer(tag, distance) under the stop tags now,
+        given its keeper `seg` under fewer stop tags."""
+        graph = self.graph
+        stop = graph.stop_tags
+        self.stats["retraced"] += 1
+        if seg.size > MAX_KEEPER_SIZE:
+            keepers, _ = keeper_arrays(graph, [fr_from_hash(tag, k)],
+                                       self.distance, MAX_KEEPER_SIZE,
+                                       stop_keys(graph))
+            return set(keepers.tolist())
+        c0 = min(fr_from_hash(tag, k))
+        if c0 in stop:
+            return set()
+        # the first keeper as a graph: each k-mer's 8 neighbours in its
+        # forward orientation (kmer_f the canonical hash), as indices
+        # into the sorted first keeper (-1: absent or a stop tag now) and
+        # whether each is met in its own forward orientation
+        nodes = np.sort(seg)
+        nf, nr = neighbors_fr(*(_u64.as_tensor(x, "cpu")
+                                for x in fr_from_hashes(nodes, k)), k)
+        nf, canon = _u64.to_numpy(nf), _u64.to_numpy(_u64.umin(nf, nr))
+        idx = np.searchsorted(nodes, canon).clip(max=nodes.size - 1)
+        live = np.array([c not in stop for c in nodes.tolist()])
+        idx[(nodes[idx] != canon) | ~live[idx]] = -1
+        fwd = nf == canon
+        # met in reverse orientation, a k-mer's right neighbour by base b
+        # is its forward left neighbour by b ^ 1, reversed, and so on
+        back = [5, 4, 7, 6, 1, 0, 3, 2]
+        keeper = {c0}
+        seen = np.zeros(nodes.size, bool)
+        at = np.searchsorted(nodes, np.uint64(c0))
+        seen[at] = True
+        front, front_fwd = np.array([at]), np.array([True])
+        for _ in range(self.distance):
+            rows, rows_fwd = idx[front], fwd[front]
+            rev = ~front_fwd
+            rows[rev] = rows[rev][:, back]
+            rows_fwd[rev] = ~rows_fwd[rev][:, back]
+            rows, rows_fwd = rows.ravel(), rows_fwd.ravel()
+            ok = rows >= 0
+            rows, rows_fwd = rows[ok], rows_fwd[ok]
+            first = np.sort(np.unique(rows, return_index=True)[1])
+            new = first[~seen[rows[first]]]
+            if not new.size:
+                break
+            front, front_fwd = rows[new], rows_fwd[new]
+            seen[front] = True
+            keeper.update(nodes[front].tolist())
+        return keeper
+
+    def _walk(self, keeper):
+        """The count walk of one keeper in its set order: (the k-mers
+        that become stop tags, in order; uint64 k-mers to add, in
+        order)."""
+        arr = np.fromiter(keeper, np.uint64, len(keeper))
+        if not arr.size:
+            return [], arr
+        self.stats["walked"] += 1
+        self.stats["kmers_walked"] += int(arr.size)
+        pos = np.searchsorted(self.kmers, arr)
+        known = pos < self.kmers.size
+        known[known] = self.kmers[pos[known]] == arr[known]
+        if not known.all():
+            self._read_bins(np.unique(arr[~known]))
+            pos = np.searchsorted(self.kmers, arr)
+        cid = self.cid[:, pos]
+        base, delta = self.base, self.delta
+        if np.unique(cid).size == cid.size:
+            count = np.minimum((base[cid] + delta[cid]).min(0), self.cap)
+            stop = count > self.frequency
+            delta[cid[:, ~stop]] += 1
+        else:
+            stop = np.zeros(arr.size, bool)
+            for i in range(arr.size):
+                ids = cid[:, i]
+                if min(int((base[ids] + delta[ids]).min()),
+                       self.cap) > self.frequency:
+                    stop[i] = True
+                else:
+                    delta[ids] += 1
+        stops = arr[stop].tolist()
+        self.stats["stop_tags_added"] += len(stops)
+        return stops, arr[~stop]
+
+
+def _counts(st, hashes):
+    """Counts of device hashes with a loaded bigcount map overlaid, as
+    khmer_tpu's storage.get_batch reads them."""
+    counts = st.get_lanes(hashes)
+    if st.kind == "byte" and st.get_use_bigcount() and st.bigcounts:
+        counts = torch.from_numpy(st.overlay_bigcounts(
+            counts.cpu().numpy(), _u64.to_numpy(hashes))).to(hashes.device)
+    return counts.to(torch.int32)
 
 
 def _pairs_in(qs, qc, ss, sc):

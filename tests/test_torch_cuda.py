@@ -1431,3 +1431,178 @@ def test_band_mask_consume_small_on_card(dev, tmp_path):
     with pytest.raises(ValueError, match="mask on cpu"):
         Countgraph(20, 20011, 4, device=dev).consume_seqfile_with_mask(
             fa, mask)
+
+
+# ---------------------------------------------------------------------------
+# slice 4b: traversal, stop tags and the knot-removal workflow
+# ---------------------------------------------------------------------------
+
+
+def _knot_fa(path, seed=8, n_seqs=8, core=60, flank=100):
+    """n_seqs sequences of random flanks around one shared random core
+    (radius-40 searches from the core pass 200 k-mers)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), n))
+
+    shared = rand(core)
+    with open(path, "w") as f:
+        for i in range(n_seqs):
+            f.write(">s%d\n%s\n" % (i, rand(flank) + shared + rand(flank)))
+
+
+def _knot_graphs(dev, path, k=20):
+    """The same consume-and-tagged, partitioned Nodegraph on the card and
+    on the CPU."""
+    from khmer_tpu_torch import Nodegraph
+
+    out = []
+    for d in (dev, "cpu"):
+        g = Nodegraph(k, 10007, 4, device=d)
+        g.consume_seqfile_and_tag(path)
+        g.merge_subset(g.do_subset_partition(0, 0))
+        out.append(g)
+    return out
+
+
+@pytest.mark.parametrize("cap", [1000000, 30])
+@pytest.mark.parametrize("radius", [0, 5, 40])
+def test_batched_traversal_on_card(dev, tmp_path, radius, cap):
+    """traversal.keeper_arrays over every tag at once on the card: every
+    keeper, in order, equals the CPU's, with a seventh of the tags stop
+    tags; and one traverse_from_kmer a seed."""
+    from khmer_tpu_torch import traversal
+
+    path = str(tmp_path / "knot.fa")
+    _knot_fa(path)
+    gd, gc = _knot_graphs(dev, path)
+    tags = sorted(gc.all_tags)
+    for g in (gd, gc):
+        g.stop_tags = set(tags[::7])
+    seeds = [traversal.fr_from_hash(t, 20) for t in tags]
+    before = kernels.LAUNCHES["sketch_get"]
+    got = traversal.keeper_arrays(gd, seeds, radius, cap,
+                                  traversal.stop_keys(gd))
+    want = traversal.keeper_arrays(gc, seeds, radius, cap,
+                                   traversal.stop_keys(gc))
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    # one probe a level for the whole batch
+    assert kernels.LAUNCHES["sketch_get"] - before <= radius
+    for t in tags[1::9]:
+        assert list(gd.traverse_from_kmer(t, radius, cap)) == \
+            list(gc.traverse_from_kmer(t, radius, cap))
+
+
+@pytest.mark.parametrize("case", ["default", "shared-bins", "batch-3"])
+def test_repartition_on_card(dev, tmp_path, case, monkeypatch):
+    """repartition_largest_partition on the card: its size, stop tags (in
+    order), partition map and counting table equal the CPU's, with the
+    speculative traversals taken again (the batch of every tag), with
+    counting bins that every walked k-mer shares, and in batches of 3;
+    the counting table is read and written once a batch."""
+    from khmer_tpu_torch import Countgraph, partitioning
+
+    path = str(tmp_path / "knot.fa")
+    _knot_fa(path)
+    if case == "batch-3":
+        monkeypatch.setattr(partitioning, "KNOT_BATCH", 3)
+    out = []
+    for g in _knot_graphs(dev, path):
+        if case == "shared-bins":
+            c = Countgraph(20, 1, 1, primes=[5, 7, 11, 13], device=g.device)
+        else:
+            c = Countgraph(20, 10007, 4, device=g.device)
+        k2 = kernels.LAUNCHES["sketch_update"]
+        size = g.repartition_largest_partition(c, 20, 100, 1)
+        stats = g.partition.knot_stats
+        if g.device.type == "cuda":
+            # at most one add a batch (none for a batch that walks nothing)
+            k2 = kernels.LAUNCHES["sketch_update"] - k2
+            assert 0 < k2 <= kernels.KERNELS_PER_CALL["sketch_update"] * \
+                stats["batches"]
+        out.append((size, list(g.stop_tags),
+                    list(g.partition.partition_map.items()),
+                    bytes(c.storage.raw_bytes()), c.n_unique_kmers(), stats))
+    assert out[0] == out[1]
+    stats = out[0][-1]
+    assert stats["stop_tags_added"] > 0 and stats["walked"] > 0
+    if case != "batch-3":
+        assert stats["retraced"] > 0
+
+
+@pytest.mark.parametrize("primes", [None, [101, 103, 107]])
+@pytest.mark.parametrize("cls", ["Nodegraph", "Countgraph"])
+def test_consume_and_tag_with_stoptags_on_card(dev, tmp_path, cls, primes,
+                                               monkeypatch):
+    """consume_seqfile_and_tag_with_stoptags on the card (in batches of 7
+    reads) equals the CPU run: returns, tags, stop tags, partition map,
+    table bytes and n_unique; over 3 x ~100 bins too, where a batch's
+    empty bins are shared."""
+    import khmer_tpu_torch
+    from khmer_tpu_torch import graph
+
+    path = str(tmp_path / "reads.fa")
+    _write_reads(path, 31, n_reads=300, repeats=5)
+    _knot_fa(str(tmp_path / "knot.fa"))
+    monkeypatch.setattr(graph, "TAG_BATCH", 7)
+    out = []
+    for d in (dev, "cpu"):
+        g = getattr(khmer_tpu_torch, cls)(
+            20, *((1, 1) if primes else (10007, 4)), primes=primes, device=d)
+        with open(path) as f:
+            seqs = f.read().split("\n")[1::2]
+        for s in seqs[::10]:
+            g.add_stop_tag(s[30:50])
+        ret = [g.consume_seqfile_and_tag_with_stoptags(path),
+               g.consume_seqfile_and_tag_with_stoptags(
+                   str(tmp_path / "knot.fa"))]
+        out.append((ret, list(g.all_tags), list(g.stop_tags),
+                    list(g.partition.partition_map.items()),
+                    bytes(g.storage.raw_bytes()), g.n_unique_kmers()))
+    assert out[0] == out[1]
+
+
+def test_knot_scripts_small_on_card(dev, tmp_path):
+    """do-partition, load-graph, make-initial-stoptags, partition-graph
+    --stoptags, find-knots and filter-stoptags on the card write the CPU
+    run's bytes, and the stop tags are not empty."""
+    import os
+
+    from khmer_tpu_torch.scripts import (do_partition, filter_stoptags,
+                                         find_knots, load_graph,
+                                         make_initial_stoptags,
+                                         partition_graph)
+
+    _knot_fa(str(tmp_path / "knot.fa"))
+    out = {}
+    here = os.getcwd()
+    kernels.reset_launches()
+    for d in (dev, "cpu"):
+        wd = tmp_path / str(d)
+        wd.mkdir()
+        os.chdir(str(wd))
+        try:
+            table = ["-k", "20", "-N", "4", "-x", "10007"]
+            do_partition.main(table + ["-s", "20", "dp", "../knot.fa"],
+                              device=d)
+            load_graph.main(table + ["g", "../knot.fa"], device=d)
+            make_initial_stoptags.main(["-k", "20", "-x", "10007", "g"],
+                                       device=d)
+            partition_graph.main(["--stoptags", "g.stoptags", "-s", "30",
+                                  "g"], device=d)
+            find_knots.main(["-x", "10007", "-N", "4", "g"], device=d)
+            filter_stoptags.main(["-k", "20", "g.stoptags", "../knot.fa"],
+                                 device=d)
+        finally:
+            os.chdir(here)
+        out[str(d)] = {f: open(str(wd / f), "rb").read()
+                       for f in sorted(os.listdir(str(wd)))}
+        if d == dev:
+            launches = dict(kernels.LAUNCHES)
+    assert out[str(dev)] == out["cpu"]
+    assert len(out["cpu"]["g.stoptags"]) > 18 + 8 * 20
+    for name in ("hash2bit_canonical", "sketch_update", "sketch_get",
+                 "bin_scatter_add"):
+        assert launches[name], name
