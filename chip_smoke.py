@@ -50,9 +50,10 @@ Phases (any failure exits non-zero; nothing is caught):
   5. the slice-2 path: normalize-by-median -p -C 20 --savegraph,
      trim-low-abund -C 3 -Z 18 -V, filter-abund -C 2 (phase-4 .ct),
      filter-abund-single -C 2 and count-median (phase-4 .ct, the first
-     100,000 reads), all at -k 20 -N 4 -x 1e8, on 1,280,000 interleaved
-     100-bp reads in pairs (0.5% substitutions) at 40x over the phase-4
-     genome, through the port's script entry points.  Held against (a)
+     100,000 reads), all at -k 20 -N 4 -x 1e8, on 640,000 interleaved
+     100-bp reads in pairs (0.5% substitutions) at 40x over the first
+     1.6 Mbase of the phase-4 genome (configs 2-3's 1,280,000 reads over
+     3.2 Mbase, halved for the smoke's time limit), through the port's script entry points.  Held against (a)
      the same runs through the plain versions on the card (every output
      file's sha256, reads and bases written, n_unique identical) and
      (b) a numpy replay of the first batch's keep decisions from K3
@@ -90,8 +91,10 @@ Phases (any failure exits non-zero; nothing is caught):
      to -x 1e8: load-graph -k 32 -N 4 -x 1e8, partition-graph -s 1e5 (and
      a second run with --no-big-traverse on a copy of the graph),
      merge-partitions, annotate-partitions and extract-partitions on
-     400,000 100-bp reads (0.5% substitutions, half reverse-complemented)
-     over 1,000 random genomes of 1-8 kbases, through the port's script
+     200,000 100-bp reads (0.5% substitutions, half reverse-complemented)
+     over 500 random genomes of 1-8 kbases (the same coverage as phase
+     10's 400,000 reads over 1,000 genomes: halved for the smoke's time
+     limit), through the port's script
      entry points; then SubsetPartition.do_partition_device (K10) and
      do_partition on the loaded graph.  Held against (a) the same scripts
      through the plain versions on the card (every file in the working
@@ -119,7 +122,7 @@ Phases (any failure exits non-zero; nothing is caught):
      on the phase-4 file; normalize-by-median -p -C 20 --savegraph,
      filter-abund-single -C 2, trim-low-abund -C 3 -Z 18 -V and
      trim-low-abund --loadgraph (the small .ct), all --small-count, on
-     the first 160,000 reads of the phase-5 file (an eighth of it, cut
+     the first 160,000 reads of the phase-5 file (a quarter of it, cut
      for the smoke's time limit); then a CyclicCounttable(20, 1e8, 4):
      consume_seqfile and abundance_distribution of the phase-4 file,
      get_median_count_batch of the first 16,384 phase-5 reads, save,
@@ -160,7 +163,8 @@ Phases (any failure exits non-zero; nothing is caught):
      peak device memory are printed.
   10. slice 4b's path, the knot-removal workflow of
      docs/user/partitioning-big-data.md, through the port's script entry
-     points on phase 7's 400,000 reads over 1,000 genomes of which 200
+     points on 400,000 reads over 1,000 genomes (phase 7's metagenome at
+     twice its size) of which 200
      carry two of four shared 400-base repeats (one lump): do-partition
      -k 32 -N 4 -x 1e8 -s 1e5; extract-partitions -X 20000 (the largest
      group is the lump); on the lump load-graph, make-initial-stoptags,
@@ -174,6 +178,24 @@ Phases (any failure exits non-zero; nothing is caught):
      launches by script, the repartitions' batches, walks and traversals
      taken again, the stop-tag count, the lump's partitions before and
      after the filter and peak device memory are printed.
+  11. slice 4c's path, labels, assembly and the read aligner, through
+     the port's sandbox scripts: (a) correct-reads -k 20 -N 4 -x 1e8
+     (-Z 20 -C 2 --theta 1.0) on 50,000 interleaved 100-bp reads at 40x
+     over the first 0.125 Mbase of the phase-4 genome (0.5%
+     substitutions); (b) sweep-reads --label-by-pid -x 1e8 -N 4 at the
+     default radius: a reference of 100,000 reads over 100 random
+     genomes of 1-8 kbases, each named with its genome's index, and
+     40,000 reads of a second sample over them plus 4,000 from 10 absent
+     genomes; (c) assemble-on-the-go on 5,000 100-bp reads at 40x over
+     a 12.5 kbase genome of random stop-free codons (0.5% substitutions).
+     Held against the same runs through the plain versions on the card
+     (stdout, every stderr line and every output file identical); K1,
+     K2, K3 and K5 must have been launched by this run.  Reads corrected,
+     alignments, the native search's us an alignment, the snapshot's
+     copies and ms (and a pinned copy of a table of the same size),
+     labelled, multi-labelled and orphaned reads, ORFs, assemblies,
+     assembler steps and us a step, K3 launches, walls and device busy
+     shares are printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -238,7 +260,9 @@ MAIN_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
 SLICE2_PATH = ("row_counts", "diginorm_chain", "trim_chain",
                "hash2bit_canonical", "sketch_update", "sketch_get",
                "bin_scatter_add")
-SLICE2_READS = 1_280_000  # reads of the phase-5 file: 40x over the genome
+# reads of the phase-5 file: 40x over the first 1.6 Mbase of the genome
+# (configs 2-3's 1,280,000 reads over 3.2 Mbase, halved for the time limit)
+SLICE2_READS = 640_000
 SLICE2_COVERAGE = 40
 BATCH = 16384  # bundles per normalize-by-median / trim-low-abund batch
 # the murmur path (phase 6): its k, K8's k in phase 3c, K9's register bits
@@ -253,8 +277,10 @@ PACKING = ("pack_oxli_bytes", "unpack_oxli_bytes", "occupied_bins")
 # the partitioning path (phase 7): BASELINE config 5 at the documented
 # workflow's flags (docs/user/partitioning-big-data.md), the table cut
 PARTITION_K = 32
-PARTITION_GENOMES = 1000
-PARTITION_READS = 400_000
+# (halved from 1,000 genomes and 400,000 reads, the coverage kept, for the
+# smoke's time limit; phase 10 keeps the full size)
+PARTITION_GENOMES = 500
+PARTITION_READS = 200_000
 PARTITION_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
                   "cc_rounds")
 # slice 3b (phases 3e and 8): K11's k in phase 3e, the nibble kind's read
@@ -265,15 +291,37 @@ SMALL_READS = 160_000
 SMALL_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
               "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
               "trim_chain", "cyclic_hashes")
-# slice 4b (phase 10): the knot-removal workflow on phase 7's metagenome
-# with KNOT_CARRIERS genomes carrying two of KNOT_REPEATS shared repeats;
+# slice 4b (phase 10): the knot-removal workflow on a metagenome of
+# KNOT_READS reads over KNOT_GENOMES genomes (phase 7's, at full size) with
+# KNOT_CARRIERS genomes carrying two of KNOT_REPEATS shared repeats;
 # extract-partitions' groups of KNOT_GROUP reads put the lump in the largest
+KNOT_GENOMES = 1000
+KNOT_READS = 400_000
 KNOT_CARRIERS = 200
 KNOT_REPEATS = 4
 KNOT_REPEAT_LEN = 400
 KNOT_GROUP = 20000
 KNOT_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
              "bin_scatter_add")
+# slice 4c (phase 11): correct-reads on CORRECT_READS reads at 40x over the
+# first 0.125 Mbase of the phase-4 genome (configs 2-3's 3.2 Mbase cut, so
+# that coverage passes -Z, and the reads halved from 100,000 for the
+# smoke's time); sweep-reads of SWEEP_READS reads (and a tenth more from
+# SWEEP_ABSENT genomes absent from the reference) against SWEEP_REF_READS
+# reference reads over SWEEP_GENOMES random genomes; assemble-on-the-go on
+# OTG_READS reads at 40x over a genome of OTG_GENOME bases of stop-free
+# codons (40,000 reads over 0.1 Mbase cut to an eighth: the run is read by
+# read, and the plain versions take about 7 ms a read)
+CORRECT_READS = 50_000
+CORRECT_COVERAGE = 40
+SWEEP_GENOMES = 100
+SWEEP_ABSENT = 10
+SWEEP_REF_READS = 100_000
+SWEEP_READS = 40_000
+OTG_READS = 5_000
+OTG_GENOME = 12_500
+SLICE4C_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
+                "row_counts")
 
 
 def fail(msg):
@@ -3011,12 +3059,12 @@ def run_knots(card, dev, tmp, seed):
     fa = os.path.join(wd, "reads.fa")
     t_phase = time.perf_counter()
     bases, lump_bases = make_lump_metagenome(
-        fa, seed, PARTITION_GENOMES, PARTITION_READS, KNOT_CARRIERS,
+        fa, seed, KNOT_GENOMES, KNOT_READS, KNOT_CARRIERS,
         KNOT_REPEATS, KNOT_REPEAT_LEN)
     log("phase 10: {} reads of 100 bp over {} random genomes of 1-8 kbases "
         "({} bases), {} of them ({} bases) carrying two of {} repeats of {} "
         "bases; 0.5% substitutions, half reverse-complemented, {:.1f} s to "
-        "write".format(PARTITION_READS, PARTITION_GENOMES, bases,
+        "write".format(KNOT_READS, KNOT_GENOMES, bases,
                        KNOT_CARRIERS, lump_bases, KNOT_REPEATS,
                        KNOT_REPEAT_LEN, time.perf_counter() - t_phase))
     torch.cuda.empty_cache()
@@ -3087,6 +3135,306 @@ def run_knots(card, dev, tmp, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: slice 4c, labels, assembly and the read aligner, at full width
+# ---------------------------------------------------------------------------
+
+
+def write_reads(path, names, reads):
+    """FASTA records of 2-bit code rows (A C G T = 0 1 2 3) under the
+    given names (bytes)."""
+    seqs = np.frombuffer(b"ACGT", np.uint8)[reads]
+    with open(path, "wb") as f:
+        f.write(b"".join(b">%s\n%s\n" % (nm, row.tobytes())
+                         for nm, row in zip(names, seqs)))
+
+
+def sample_reads(rng, genome, offs, lens, which, readlen=100, err=0.005):
+    """A read of `readlen` bases at a random start of each genome in
+    `which`, a share `err` of its bases substituted, half of them
+    reverse-complemented: 2-bit rows [len(which), readlen]."""
+    starts = lens[which] - readlen + 1
+    at = offs[which] + (rng.random(which.size) * starts).astype(np.int64)
+    reads = genome[at[:, None] + np.arange(readlen)]
+    hit = rng.random(reads.shape, dtype=np.float32) < err
+    reads[hit] = (reads[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    rc = rng.random(which.size) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    return reads
+
+
+def make_sweep_files(ref_path, reads_path, seed):
+    """sweep-reads' reference (reads named '<name>\\t<genome index>') and
+    reads to sweep (a tenth of them from genomes absent from the
+    reference).  Returns the reference genomes' bases."""
+    rng = np.random.default_rng(seed + 11)
+    n = SWEEP_GENOMES + SWEEP_ABSENT
+    lens = rng.integers(1000, 8001, n)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    genome = rng.integers(0, 4, int(offs[-1]), dtype=np.uint8)
+
+    def pick(lo, hi, count):
+        p = (lens[lo:hi] - 99) / (lens[lo:hi] - 99).sum()
+        return lo + rng.choice(hi - lo, count, p=p)
+
+    which = pick(0, SWEEP_GENOMES, SWEEP_REF_READS)
+    write_reads(ref_path, [b"r%d\t%d" % (i, g)
+                           for i, g in enumerate(which.tolist())],
+                sample_reads(rng, genome, offs, lens, which))
+    which = np.concatenate([pick(0, SWEEP_GENOMES, SWEEP_READS),
+                            pick(SWEEP_GENOMES, n, SWEEP_READS // 10)])
+    rng.shuffle(which)
+    write_reads(reads_path, [b"q%d" % i for i in range(which.size)],
+                sample_reads(rng, genome, offs, lens, which))
+    return int(offs[SWEEP_GENOMES])
+
+
+def make_coding_reads(path, seed):
+    """OTG_READS reads over a genome of OTG_GENOME bases of random
+    stop-free codons, whose contigs hold long open reading frames."""
+    rng = np.random.default_rng(seed + 12)
+    codons = np.array([c for c in np.ndindex(4, 4, 4) if "".join(
+        "ACGT"[i] for i in c) not in ("TAA", "TAG", "TGA")], np.uint8)
+    genome = codons[rng.integers(0, len(codons), OTG_GENOME // 3)]
+    genome = genome.reshape(-1)
+    which = np.zeros(OTG_READS, np.int64)
+    write_reads(path, [b"c%d" % i for i in range(OTG_READS)],
+                sample_reads(rng, genome, np.array([0]),
+                             np.array([genome.size]), which))
+
+
+class _Tally:
+    """Calls and seconds of a method, counted through a wrapper."""
+
+    def __init__(self, owner, name):
+        self.calls = 0
+        self.seconds = 0.0
+        method = getattr(owner, name)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return method(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        self.patch = mock.patch.object(owner, name, wrapped)
+
+
+def slice4c_steps(files):
+    """Phase 11's runs: (name, sandbox module, argv)."""
+    from khmer_tpu_torch.sandbox import (assemble_on_the_go, correct_reads,
+                                         sweep_reads)
+
+    graph = ["-N", "4", "-x", repr(TABLE_SIZE)]
+    return [
+        ("correct-reads", correct_reads,
+         ["-k", str(K)] + graph + [files["pairs"]]),
+        ("sweep-reads", sweep_reads,
+         ["--label-by-pid"] + graph + ["--outdir", ".", files["ref"],
+                                       files["reads"]]),
+        ("assemble-on-the-go", assemble_on_the_go, [files["coding"]])]
+
+
+def slice4c_runs(workdir, files, dev, profile, card):
+    """Phase 11's runs on `dev`, in `workdir`: walls (and device busy
+    seconds when `profile`), K3 launches, stdout, stderr lines (with the
+    temporary directory's name marked) and the sha256 of every file
+    written, and each run's counted calls."""
+    import re
+
+    from khmer_tpu_torch import assembly, kernels, readaligner, storage
+
+    os.makedirs(workdir)
+    out = {"walls": {}, "busy": {}, "k3": {}, "outputs": {}, "tallies": {}}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for name, module, argv in slice4c_steps(files):
+            tallies = {
+                "alignments": _Tally(readaligner.ReadAligner,
+                                     "_align_hashed"),
+                "native": _Tally(readaligner.ReadAligner,
+                                 "_native_subalign"),
+                "snapshots": _Tally(storage.Storage, "_take_snapshot"),
+                "assemblies": _Tally(assembly.SimpleLabeledAssembler,
+                                     "assemble"),
+                "steps": _Tally(assembly.LinearAssembler, "_next_symbol")}
+            stdout, stderr = io.StringIO(), io.StringIO()
+
+            def run():
+                with contextlib.redirect_stdout(stdout), \
+                        contextlib.redirect_stderr(stderr):
+                    module.main(argv, device=dev)
+
+            before = kernels.LAUNCHES["sketch_get"]
+            sync(dev)
+            with contextlib.ExitStack() as stack:
+                for t in tallies.values():
+                    stack.enter_context(t.patch)
+                stack.enter_context(mock.patch.object(
+                    sys, "argv", [name + ".py"] + argv))
+                try:
+                    if profile:
+                        wall, busy = device_share(name, run, card)
+                        out["busy"][name] = busy
+                    else:
+                        t0 = time.perf_counter()
+                        run()
+                        sync(dev)
+                        wall = time.perf_counter() - t0
+                except BaseException:
+                    sys.stderr.write(stderr.getvalue()[-20000:])
+                    raise
+            out["walls"][name] = wall
+            out["k3"][name] = kernels.LAUNCHES["sketch_get"] - before
+            out["tallies"][name] = {k: (t.calls, t.seconds)
+                                    for k, t in tallies.items()}
+            files_now = {}
+            for f in sorted(os.listdir(".")):
+                with open(f, "rb") as fh:
+                    files_now[f] = hashlib.sha256(fh.read()).hexdigest()
+            out["outputs"][name] = (
+                stdout.getvalue(),
+                [re.sub(r"\S*tmp\w+khmer", "<tmp>", ln)
+                 for ln in stderr.getvalue().splitlines()], files_now)
+            log("phase 11 {} done, {:.1f} s into the smoke".format(
+                name, time.perf_counter() - STARTED))
+            gc.collect()
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def snapshot_copy_ms(dev, card):
+    """A device-to-host copy of a table of 4 x 1e8 u32 bins (the
+    snapshot's copy), into pageable and into pinned host memory."""
+    import torch
+
+    from khmer_tpu_torch.ops.sketch_ops import SketchSpec, alloc_table
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+
+    table = alloc_table(SketchSpec("byte", tuple(get_n_primes_near_x(
+        4, TABLE_SIZE))), dev)
+    t0 = time.perf_counter()
+    pinned = torch.empty(table.shape, dtype=table.dtype, pin_memory=True)
+    alloc_ms = 1e3 * (time.perf_counter() - t0)
+    times = {}
+    for kind in ("pageable", "pinned", "pageable", "pinned"):
+        sync(dev)
+        t0 = time.perf_counter()
+        if kind == "pinned":
+            pinned.copy_(table)
+        else:
+            table.to("cpu", copy=True)
+        times.setdefault(kind, []).append(
+            1e3 * (time.perf_counter() - t0))
+    log("snapshot copy of {} bytes: pageable {} ms, pinned {} ms (the "
+        "pinned buffer's allocation {:.1f} ms) [{}]".format(
+            table.numel() * 4, ", ".join("{:.1f}".format(t)
+                                         for t in times["pageable"]),
+            ", ".join("{:.1f}".format(t) for t in times["pinned"]),
+            alloc_ms, card))
+
+
+def run_slice4c(card, dev, tmp, seed):
+    """Phase 11: correct-reads, sweep-reads and assemble-on-the-go through
+    the port's sandbox scripts on the card, held to the same runs through
+    the plain versions; returns the path's launches."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    wd = os.path.join(tmp, "p11")
+    os.makedirs(wd)
+    files = {n: os.path.join(wd, n + ".fa")
+             for n in ("pairs", "ref", "reads", "coding")}
+    t_phase = time.perf_counter()
+    span = make_pairs(files["pairs"], seed, CORRECT_READS, CORRECT_COVERAGE)
+    ref_bases = make_sweep_files(files["ref"], files["reads"], seed)
+    make_coding_reads(files["coding"], seed)
+    log("phase 11: correct-reads on {} reads in pairs at {}x over the first "
+        "{} bases of the phase-4 genome; sweep-reads of {} + {} reads "
+        "against {} reference reads over {} genomes ({} bases; {} absent "
+        "genomes); assemble-on-the-go on {} reads at 40x over {} bases of "
+        "stop-free codons; 0.5% substitutions; {:.1f} s to write".format(
+            CORRECT_READS, CORRECT_COVERAGE, span, SWEEP_READS,
+            SWEEP_READS // 10, SWEEP_REF_READS, SWEEP_GENOMES, ref_bases,
+            SWEEP_ABSENT, OTG_READS, OTG_GENOME,
+            time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = slice4c_runs(os.path.join(wd, "kernels"), files, dev, True, card)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 11 launches: {}".format(json.dumps(launches)))
+    log("phase 11 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in SLICE4C_PATH if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the slice-4c path: {}".format(missing))
+    for name, wall in got["walls"].items():
+        busy = got["busy"].get(name)
+        log("{}: {:.3f} s (profiled), device busy {}, K3 launches {} "
+            "[{}]".format(name, wall, "not measured" if busy is None else
+                          "{:.3f} s = {:.1f}%".format(busy,
+                                                      100 * busy / wall),
+                          got["k3"][name], card))
+    snapshot_copy_ms(dev, card)
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = slice4c_runs(os.path.join(wd, "plain"), files, dev, False,
+                           card)
+    log("phase 11 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    for name, want in ref["outputs"].items():
+        mine = got["outputs"][name]
+        if mine != want:
+            fail("slice-4c path differs from its plain run in {}: stdout "
+                 "{}; stderr lines {}; files {}".format(
+                     name, "equal" if mine[0] == want[0] else "differs",
+                     [(x, y) for x, y in zip(mine[1], want[1])
+                      if x != y][:5] + ([len(mine[1]), len(want[1])]
+                                        if len(mine[1]) != len(want[1])
+                                        else []),
+                     sorted(f for f in set(mine[2]) | set(want[2])
+                            if mine[2].get(f) != want[2].get(f))))
+    t = got["tallies"]
+    a, b, c = (got["outputs"][n][1] for n in
+               ("correct-reads", "sweep-reads", "assemble-on-the-go"))
+    n_align, align_s = t["correct-reads"]["alignments"]
+    n_native, native_s = t["correct-reads"]["native"]
+    n_snap, snap_s = t["correct-reads"]["snapshots"]
+    corrected = [ln for ln in a if ln.startswith("corrected ")]
+    log("correct-reads: {}; {} alignments, {:.1f} us an alignment ({} "
+        "native searches, {:.1f} us of them an alignment, the Python "
+        "around the C call included); {} snapshot copies, {:.1f} ms in "
+        "all [{}]".format(corrected, n_align, 1e6 * align_s / max(n_align, 1),
+                          n_native, 1e6 * native_s / max(n_align, 1), n_snap,
+                          1e3 * snap_s, card))
+    log("sweep-reads: {} [{}]".format(
+        [ln for ln in b if ln.startswith(("swept ", "...with", "...and"))],
+        card))
+    n_asm, asm_s = t["assemble-on-the-go"]["assemblies"]
+    n_steps, _ = t["assemble-on-the-go"]["steps"]
+    orfs = got["outputs"]["assemble-on-the-go"][0].count(">orf")
+    log("assemble-on-the-go: {} ORFs, {} assemblies, {} assembler steps, "
+        "{:.1f} us a step (assemble's seconds over its steps), {:.3f} s "
+        "in assemble [{}]".format(orfs, n_asm, n_steps,
+                                  1e6 * asm_s / max(n_steps, 1), asm_s,
+                                  card))
+    if not corrected or corrected[0] == "corrected 0 reads" or not orfs \
+            or not any(ln.startswith("...and ") for ln in b):
+        fail("phase 11 corrected, swept or assembled nothing")
+    log("kernels == plain on the card: stdout, stderr and every output "
+        "file of the three runs; phase 11: {:.1f} s with its plain runs "
+        "[{}]".format(time.perf_counter() - t_phase, card))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3126,6 +3474,7 @@ def main():
         check_filter_kernel(dev, reads_fa, ct, rec)
         slice10 = run_slice10(card, dev, tmp, reads_fa, pairs_fa, ct, uniq4)
         run_knots(card, dev, tmp, args.seed)
+        run_slice4c(card, dev, tmp, args.seed)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by

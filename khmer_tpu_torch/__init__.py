@@ -33,7 +33,11 @@ queries (``traverse_from_kmer``, ``calc_connected_graph_size``,
 ``find_high_degree_nodes``, ...), ``consume_seqfile_and_tag_with_stoptags``,
 ``repartition_largest_partition``, ``sweep_for_tags``, ``find_unpart``,
 PrePartitionInfo and the scripts make-initial-stoptags, find-knots,
-filter-stoptags and do-partition.
+filter-stoptags and do-partition; labels, assembly and the read aligner
+(slice 4c): GraphLabels, LinearAssembler, SimpleLabeledAssembler,
+JunctionCountAssembler, ReadAligner, ``assemble_linear_path``, and the
+sandbox scripts correct-reads, sweep-reads and assemble-on-the-go
+(``khmer_tpu_torch.sandbox.<name>``).
 """
 
 from collections import namedtuple
@@ -41,6 +45,8 @@ from struct import unpack
 import sys
 
 from khmer_tpu_torch._version import __version__
+from khmer_tpu_torch.assembly import (JunctionCountAssembler, LinearAssembler,
+                                      SimpleLabeledAssembler)
 from khmer_tpu_torch.graph import (Countgraph, Hashgraph, Nodegraph,
                                    SmallCountgraph)
 from khmer_tpu_torch.hashset import HashSet
@@ -50,6 +56,7 @@ from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxReader, Read
 from khmer_tpu_torch.io.oxli_format import FILETYPES
 from khmer_tpu_torch.kmer import Kmer
+from khmer_tpu_torch.labeling import GraphLabels
 from khmer_tpu_torch.legacy import Hashbits, new_hashbits, new_hashtable
 from khmer_tpu_torch.ops.hashing import (
     forward_hash,
@@ -62,12 +69,14 @@ from khmer_tpu_torch.ops.hashing import (
 from khmer_tpu_torch.parsing import FastxParser
 from khmer_tpu_torch.partitioning import PrePartitionInfo, SubsetPartition
 from khmer_tpu_torch.primes import get_n_primes_near_x, is_prime
+from khmer_tpu_torch.readaligner import ReadAligner
 
 __all__ = ["Countgraph", "Counttable", "CyclicCounttable", "FastxParser",
-           "FastxReader", "HLLCounter", "HashSet", "Hashbits", "Hashgraph",
-           "Kmer", "Nodegraph", "Nodetable", "PrePartitionInfo", "Read",
-           "ReadParser", "SmallCountgraph", "SmallCounttable",
-           "SubsetPartition",
+           "FastxReader", "GraphLabels", "HLLCounter", "HashSet", "Hashbits",
+           "Hashgraph", "JunctionCountAssembler", "Kmer", "LinearAssembler",
+           "Nodegraph", "Nodetable", "PrePartitionInfo", "Read", "ReadAligner",
+           "ReadParser", "SimpleLabeledAssembler", "SmallCountgraph",
+           "SmallCounttable", "SubsetPartition",
            "__version__", "__version_cpp__", "calc_expected_collisions",
            "extract_countgraph_info", "extract_nodegraph_info",
            "forward_hash", "forward_hash_no_rc", "get_n_primes_near_x",

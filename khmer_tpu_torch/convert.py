@@ -25,7 +25,7 @@ def storage_from_numpy(kind, tablesizes, bins_u32, n_unique=0,
     if bins.shape != (st.spec.total_bins + 1,):
         raise ValueError("expected {} bins, got {}".format(
             st.spec.total_bins + 1, bins.shape))
-    st.table = torch.from_numpy(bins.view(np.int32)).to(st.device)
+    st.replace_table(torch.from_numpy(bins.view(np.int32)).to(st.device))
     st._n_unique.fill_(int(n_unique))
     st.bigcount_candidates = set(int(h) for h in bigcount_candidates)
     st.bigcounts = dict(bigcounts or {})

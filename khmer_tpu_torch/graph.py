@@ -4,9 +4,8 @@ and Nodegraph.
 Port of khmer_tpu/graph.py:23-619: tags and stop tags, consume-and-tag
 (also around stop tags), tagset and stoptags files, the traversal
 queries (khmer_tpu_torch.traversal), subset partitions, partition maps
-and the knot-finding calls (khmer_tpu_torch.partitioning), and the
-stop-tag helpers.  assemble_linear_path comes with a later slice of the
-port (assembly).
+and the knot-finding calls (khmer_tpu_torch.partitioning), the stop-tag
+helpers and assemble_linear_path (khmer_tpu_torch.assembly).
 
 Tagging takes each batch of reads through one K1 pass over their padded
 rows and one Storage.add_lanes call (K2) in read and k-mer order, whose
@@ -183,9 +182,10 @@ class Hashgraph(Hashtable):
             n_consumed += self._consume_and_tag_batch(pending)
         return n_reads, n_consumed
 
-    def _consume_and_tag_batch(self, seqs, found_tags=None):
+    def _consume_and_tag_batch(self, seqs, found_tags=None, read_tags=None):
         """consume_and_tag over several reads: their k-mers go into the
-        table in one add_lanes call, in read and k-mer order."""
+        table in one add_lanes call, in read and k-mer order.  read_tags,
+        when given, is a list that gets each read's found tags (a set)."""
         h, valid = self._row_hashes(seqs)
         flat = h[valid]
         if flat.numel() == 0:
@@ -197,8 +197,11 @@ class Hashgraph(Hashtable):
         off = 0
         for s in seqs:
             n = len(s) - self._ksize + 1
+            found = found_tags if read_tags is None else set()
             self._tag_from_hashes(hashes[off: off + n],
-                                  isnew[off: off + n], found_tags)
+                                  isnew[off: off + n], found)
+            if read_tags is not None:
+                read_tags.append(found)
             off += n
         return int(isnew.sum())
 
@@ -523,6 +526,13 @@ class Hashgraph(Hashtable):
     def extract_unique_paths(self, sequence, min_length, min_unique_f):
         return traversal.extract_unique_paths(self, sequence, min_length,
                                               min_unique_f)
+
+    def assemble_linear_path(self, kmer, stop_filter=None):
+        """The maximal linear path through kmer (graphs.pyx,
+        khmer_tpu/graph.py:285)."""
+        from khmer_tpu_torch.assembly import LinearAssembler
+
+        return LinearAssembler(self, stop_filter).assemble(kmer)
 
     def get_tags_and_positions(self, sequence):
         """(pos, tag) pairs of sequence k-mers that are tags

@@ -47,7 +47,6 @@ from khmer_tpu_torch.ops.hashing import (chunk_hashes, compute_band_interval,
                                          murmur_window_hashes, reverse_hash,
                                          row_hashes_counts)
 from khmer_tpu_torch.ops.rollinghash import hash_cyclic_scalar
-from khmer_tpu_torch.ops.sketch_ops import sketch_update
 from khmer_tpu_torch.primes import get_n_primes_near_x
 from khmer_tpu_torch.storage import BitStorage, ByteStorage, NibbleStorage
 
@@ -779,9 +778,7 @@ class Hashtable:
                               "amin")
         order = torch.argsort(first)[:int((first < pos.numel()).sum())]
         weights = tally[order].clamp(max=TOTAL_CLAMP)
-        st = self.storage
-        sketch_update(st._geom, st.table, st._n_unique, keys[order], weights)
-        st._loaded_occupied = None
+        self.storage.add_lanes(keys[order], weights, track_bigcount=False)
 
     def diginorm_batch(self, seq_pairs, desired_coverage):
         """normalize-by-median over one batch of read bundles

@@ -302,6 +302,12 @@ def write_record(record, fileobj):
         fileobj.write(recstr)
 
 
+def write_record_pair(read1, read2, fileobj):
+    """Write both records of a pair (khmer/utils.py write_record_pair)."""
+    write_record(read1, fileobj)
+    write_record(read2, fileobj)
+
+
 def screed_open(filename):
     """screed.open stand-in for the script layer: same record stream
     as FastxReader but yields NOTHING on empty input instead of

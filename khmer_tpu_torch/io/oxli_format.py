@@ -42,6 +42,7 @@ SAVED_HASHBITS = 2
 SAVED_TAGS = 3
 SAVED_STOPTAGS = 4
 SAVED_SUBSET = 5
+SAVED_LABELSET = 6
 SAVED_SMALLCOUNT = 7
 
 FILETYPES = {
@@ -50,7 +51,7 @@ FILETYPES = {
     "TAGS": SAVED_TAGS,
     "STOPTAGS": SAVED_STOPTAGS,
     "SUBSET": SAVED_SUBSET,
-    "LABELSET": 6,
+    "LABELSET": SAVED_LABELSET,
     "SMALLCOUNT": SAVED_SMALLCOUNT,
     "QFCOUNT": 8,
 }

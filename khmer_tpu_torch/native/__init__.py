@@ -1,10 +1,13 @@
-"""Native (C++) FASTA/FASTQ chunk loader.
+"""Native (C++) host code: the FASTA/FASTQ chunk loader and the read
+aligner's search.
 
-A copy of khmer_tpu's loader (fastx_loader.cc): it parses, cleans,
-2-bit-encodes and chunk-batches reads with the exact semantics of the
-Python _FlatBatcher (hashtable.py).  It is compiled with g++ at first
-use into khmer_tpu_torch/_build/ and bound with ctypes; a failed build
-raises.
+Copies of khmer_tpu's sources: the loader (fastx_loader.cc) parses,
+cleans, 2-bit-encodes and chunk-batches reads with the exact semantics
+of the Python _FlatBatcher (hashtable.py); read_aligner.cc runs the
+ReadAligner's A* Subalign against a host snapshot of the table
+(readaligner.py).  Both are compiled with g++ into one library at first
+use, in khmer_tpu_torch/_build/ under a name that hashes both sources,
+and bound with ctypes; a failed build raises.
 """
 
 import ctypes
@@ -18,8 +21,22 @@ import numpy as np
 from khmer_tpu_torch._version import __version__
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "fastx_loader.cc")
+_SRCS = tuple(os.path.join(_HERE, f)
+              for f in ("fastx_loader.cc", "read_aligner.cc"))
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+_P = ctypes.c_void_p
+# ra_subalign(table, sizes, offs, n_tables, read_cap, tsc, trusted_match,
+# trusted_mismatch, bits_theta, trusted_cutoff, k, seq, seq_len,
+# start_base, start_seq_idx, start_score, start_fwd, start_rc, forward,
+# out_cap, out_state, out_base, out_seq_idx, out_trusted, out_cov,
+# out_score, out_truncated, out_end_seq_idx)
+_RA_ARGTYPES = [_P, _P, _P, ctypes.c_int, ctypes.c_uint32, _P,
+                ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                ctypes.c_uint32, ctypes.c_int, ctypes.c_char_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
+                ctypes.c_long, _P, _P, _P, _P, _P, _P, _P, _P]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -28,14 +45,14 @@ _lib_lock = threading.Lock()
 def _build(so):
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp.%d" % (so, os.getpid())
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC,
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *_SRCS,
            '-DKHMER_TPU_VERSION="%s"' % __version__,
            "-lz", "-l:libbz2.so.1", "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("building the native loader failed:\n" +
-                               proc.stderr)
+            raise RuntimeError("building the native library failed:\n"
+                               + proc.stderr)
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
@@ -47,8 +64,10 @@ def get_lib():
     global _lib
     with _lib_lock:
         if _lib is None:
-            with open(_SRC, "rb") as f:
-                digest = hashlib.sha256(f.read() + __version__.encode())
+            digest = hashlib.sha256(__version__.encode())
+            for src in _SRCS:
+                with open(src, "rb") as f:
+                    digest.update(f.read())
             so = os.path.join(_BUILD_DIR, "libkhmer_io-%s.so"
                               % digest.hexdigest()[:16])
             if not os.path.exists(so):
@@ -66,8 +85,16 @@ def get_lib():
                 [ctypes.POINTER(ctypes.c_uint64)] * 3
             lib.kio_close.restype = None
             lib.kio_close.argtypes = [ctypes.c_void_p]
+            lib.ra_subalign.restype = ctypes.c_long
+            lib.ra_subalign.argtypes = _RA_ARGTYPES
             _lib = lib
     return _lib
+
+
+def native_available():
+    """True once the native library is built and loaded (a failed build
+    raises)."""
+    return get_lib() is not None
 
 
 def native_version():

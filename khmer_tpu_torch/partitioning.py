@@ -36,11 +36,12 @@ from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch.io.oxli_format import (OxliFileError,
                                             SAVED_FORMAT_VERSION,
                                             SAVED_SIGNATURE, SAVED_SUBSET)
-from khmer_tpu_torch.ops import encode as enc
-from khmer_tpu_torch.traversal import (MAX_KEEPER_SIZE, _expand, _member,
-                                       _pair_runs, _window_fr, fr_from_hash,
-                                       fr_from_hashes, keeper_arrays,
-                                       neighbors_fr, stop_keys)
+from khmer_tpu_torch.traversal import (MAX_KEEPER_SIZE, _expand,
+                                       _first_new, _keys_of, _member,
+                                       _pair_runs, _run_rank,
+                                       fr_from_hash, fr_from_hashes,
+                                       keeper_arrays, neighbors_fr,
+                                       stop_keys)
 
 BIG_TRAVERSALS_ARE = 200  # reference subset.cc:54
 SEED_BATCH = 1 << 17  # seed tags searched together (any batch: the same)
@@ -637,47 +638,101 @@ class SubsetPartition:
     def sweep_for_tags(self, seq, range_=0, break_on_stop_tags=False,
                        stop_big_traversals=False):
         """BFS from every k-mer of the read out to nearby tags
-        (subset.cc:427-520; perimeter abort at 200*len).
+        (subset.cc:427-520; perimeter abort at 200*len): the set of tags
+        reached.  range_=0 restricts the sweep to the read's own k-mers
+        (the reference's range==0 semantics); otherwise range_ bounds the
+        BFS breadth.  sweep_for_tags_batch of the one read."""
+        return self.sweep_for_tags_batch([seq], range_, break_on_stop_tags,
+                                         stop_big_traversals)[0]
 
-        range_=0 restricts the sweep to the read's own k-mers (the
-        reference's range==0 semantics); otherwise range_ bounds the
-        BFS breadth.  One probe a level; the visited set and the abort
-        are kept lane by lane on the host, as in khmer_tpu."""
+    def sweep_for_tags_batch(self, seqs, range_=0, break_on_stop_tags=False,
+                             stop_big_traversals=False):
+        """sweep_for_tags of every sequence of a batch, a list of sets, with
+        one count probe a level for the whole batch (khmer_tpu sweeps a
+        read at a time, its visited set and abort lane by lane on the
+        host).  The graph and its tags must not change meanwhile.
+
+        Every read keeps its own keeper, lanes and abort.  A level's lanes
+        stay in read order and, within a read, in khmer_tpu's lane order
+        (each expanded k-mer's existing neighbours, right then left), so
+        the lanes each read takes are those it takes alone: the first of
+        each k-mer among its lanes that is neither in its keeper nor a
+        stop tag (with break_on_stop_tags), while its keeper holds at most
+        200 * len(read) k-mers (with stop_big_traversals; a read whose
+        keeper outgrew that ends after the level).  A tag joins the
+        keeper but is not expanded, nor is anything at breadth range_.  A lane can only be in
+        its read's keeper if it joined at the last level or the one
+        before, or is a tag: every other keeper k-mer was expanded, so its
+        neighbours joined by the level after it (as in
+        traversal._keeper_pairs, where no k-mer stops the search)."""
+        from khmer_tpu_torch.hashtable import _pad_rows
+
         graph = self.graph
         k = graph.ksize()
-        all_tags = graph.all_tags
-        stop_tags = graph.stop_tags
-        big = BIG_TRAVERSALS_ARE * len(seq)
-        tagged = set()
-        keeper = set()
-        if len(seq) < k:
-            return tagged
-        f, r = _window_fr(enc.encode_sequence(seq), k)
-        cf = _u64.as_tensor(f, graph.device)
-        cr = _u64.as_tensor(r, graph.device)
+        dev = graph.device
+        out = [set() for _ in seqs]
+        rows = [i for i, q in enumerate(seqs) if len(q) >= k]
+        if not rows:
+            return out
+        # level 0: every read's k-mers, read by read
+        codes, lengths = _pad_rows([seqs[i] for i in rows], k)
+        c = graph._upload(codes).to(torch.int64)
+        w = c.shape[1] - k + 1
+        f = torch.zeros((c.shape[0], w), dtype=torch.int64, device=dev)
+        r = torch.zeros_like(f)
+        for j in range(k):
+            f = (f << 2) | c[:, j:j + w]
+            r |= (c[:, j:j + w] ^ 1) << (2 * j)
+        valid = torch.arange(w, device=dev)[None, :] < \
+            graph._upload(lengths).to(torch.int64)[:, None] - k + 1
+        f, r = f[valid], r[valid]
+        sid = torch.nonzero(valid)[:, 0]
+        n = len(rows)
+        big = torch.tensor([BIG_TRAVERSALS_ARE * len(seqs[i]) for i in rows],
+                           dtype=torch.int64, device=dev)
+        kept = torch.zeros(n, dtype=torch.int64, device=dev)
+        tags = _keys_of(graph.all_tags, dev) if graph.all_tags else None
+        stops = stop_keys(graph) if break_on_stop_tags else None
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        # the keeper's pairs of the last two levels, and its tags
+        last_s = last_c = before_s = before_c = tag_s = tag_c = empty
         breadth = 0
-        while cf.numel():
-            expand_rows = []
-            for i, c in enumerate(_u64.to_numpy(_u64.umin(cf, cr)).tolist()):
-                if stop_big_traversals and len(keeper) > big:
-                    break
-                if c in keeper:
-                    continue
-                if break_on_stop_tags and c in stop_tags:
-                    continue
-                keeper.add(c)
-                if c in all_tags:
-                    tagged.add(c)
-                    continue
-                if breadth >= range_:
-                    continue
-                expand_rows.append(i)
-            if not expand_rows:
+        while f.numel():
+            canon = _u64.umin(f, r)
+            live = ~_member(stops, canon)
+            if stop_big_traversals:
+                live &= kept[sid] <= big[sid]
+            lanes = torch.nonzero(live).squeeze(1)
+            fresh = lanes[_first_new(torch.cat([before_s, last_s, tag_s]),
+                                     torch.cat([before_c, last_c, tag_c]),
+                                     sid[lanes], canon[lanes])]
+            s = sid[fresh]
+            if stop_big_traversals:
+                # the lanes taken while the keeper held at most big k-mers
+                take = kept[s] + _run_rank(s, torch.ones_like(
+                    s, dtype=torch.bool)) - 1 <= big[s]
+                fresh, s = fresh[take], s[take]
+            if not fresh.numel():
                 break
-            idx = torch.tensor(expand_rows, device=graph.device)
-            cf, cr, _, _ = _expand(graph, cf[idx], cr[idx], k)
+            kept += torch.bincount(s, minlength=n)
+            cf = canon[fresh]
+            is_tag = _member(tags, cf)
+            tag_s = torch.cat([tag_s, s[is_tag]])
+            tag_c = torch.cat([tag_c, cf[is_tag]])
+            before_s, before_c, last_s, last_c = last_s, last_c, s, cf
+            if breadth >= range_:
+                break
+            grow = fresh[~is_tag]
+            if stop_big_traversals:
+                grow = grow[kept[sid[grow]] <= big[sid[grow]]]
+            if not grow.numel():
+                break
+            f, r, _, src = _expand(graph, f[grow], r[grow], k)
+            sid = sid[grow][src]
             breadth += 1
-        return tagged
+        for i, h in zip(tag_s.cpu().tolist(), _u64.to_numpy(tag_c).tolist()):
+            out[rows[i]].add(h)
+        return out
 
     # -- repartition / stop-tag generation --------------------------------
 

@@ -13,6 +13,11 @@ format's sparse bigcount section is reconstructed at save time from a
 host-side set of candidate hashes whose table-0 bin crossed 255; a
 bigcount map loaded *from* a file overlays saturated reads exactly as
 the reference does (storage.hh:631-653).
+
+Every write to a table goes through its Storage and counts in
+`Storage.writes`, which keeps the host count snapshot (host_counts)
+coherent: the port writes tables in place, so the snapshot cannot tell a
+new table by its identity, as khmer_tpu's does.
 """
 
 import numpy as np
@@ -56,6 +61,14 @@ class Storage:
         self.bigcount_candidates = set()
         # bigcount map loaded from an OXLI file (overlays capped reads)
         self.bigcounts = {}
+        # writes to the table so far, and the host snapshot of it
+        # (host_counts) with the write count it holds
+        self.writes = 0
+        self._host_table = None
+        self._host_writes = None
+        self._host_geom = (
+            np.asarray(self.spec.tablesizes, np.uint64)[:, None],
+            np.asarray(self.spec.bin_offsets, np.int64)[:, None])
 
     # -- geometry ---------------------------------------------------------
 
@@ -123,15 +136,19 @@ class Storage:
 
     # -- update/query -----------------------------------------------------
 
-    def add_lanes(self, hashes, weights):
+    def add_lanes(self, hashes, weights, track_bigcount=True):
         """Add a batch of device lanes (int64 hashes, int32 weights, lane
         order = insertion order); returns the per-lane was-new flags with
-        the reference's exact sequential semantics (storage.hh:176-203)."""
-        track = self.kind == "byte" and self._use_bigcount
+        the reference's exact sequential semantics (storage.hh:176-203).
+        track_bigcount=False leaves the bigcount candidates as they are
+        (khmer_tpu's batch-step flush tracks none)."""
+        track = self.kind == "byte" and self._use_bigcount and \
+            track_bigcount
         is_new, found, overflowed = sketch_update(
             self._geom, self.table, self._n_unique, hashes,
             weights, track_bigcount=track)
         self._loaded_occupied = None
+        self._mirror_host_add(hashes, weights)
         if track:
             self.bigcount_candidates.update(int(x) for x in found)
             if overflowed:
@@ -176,17 +193,80 @@ class Storage:
     def get(self, khash):
         return int(self.get_batch([khash])[0])
 
+    # -- host count snapshot (for pointer-chasing algorithms) -------------
+
+    def _wrote(self):
+        """Count a write that the snapshot does not follow, and drop it."""
+        self.writes += 1
+        self._host_table = None
+
+    def _take_snapshot(self):
+        """The table's u32 bins as a host numpy copy."""
+        return self.table.to("cpu", copy=True).numpy().view(np.uint32)
+
+    def _bins_of(self, hashes):
+        """[T, n] global bin indices (numpy int64) of uint64 hashes."""
+        sizes, offs = self._host_geom
+        return (hashes[None, :] % sizes).astype(np.int64) + offs
+
+    def host_counts(self, hashes):
+        """Counts of uint64 hashes against a host snapshot of the table
+        (khmer_tpu/storage.py:282-296): the min over tables of the bins,
+        capped at the read cap, with no loaded bigcount overlay; for
+        searches that make many tiny lookups (the ReadAligner's), where a
+        device round trip each would dominate.  The snapshot is taken
+        again after any write that add_lanes did not apply to it."""
+        h = np.asarray(hashes, np.uint64).reshape(-1)
+        tot = self.host_table()[self._bins_of(h)].min(axis=0)
+        return np.minimum(tot, self.read_cap())
+
+    def host_table(self):
+        """The host snapshot of the table's u32 bins (numpy), taken again
+        when a write has made it stale."""
+        if self._host_table is None or self._host_writes != self.writes:
+            self._host_table = self._take_snapshot()
+            self._host_writes = self.writes
+        return self._host_table
+
+    def _mirror_host_add(self, hashes, weights):
+        """Count add_lanes' write; while a current snapshot exists, apply
+        the same u32 adds to it, as khmer_tpu's _mirror_host_add
+        (storage.py:201-214) does, instead of copying the table again."""
+        current = self._host_table is not None and \
+            self._host_writes == self.writes
+        self.writes += 1
+        if not current:
+            self._host_table = None
+            return
+        w = weights.to(torch.int32).cpu().numpy().view(np.uint32)
+        live = w != 0
+        idx = self._bins_of(_u64.to_numpy(hashes)[live])
+        np.add.at(self._host_table, idx.reshape(-1),
+                  np.tile(w[live], idx.shape[0]))
+        self._host_writes = self.writes
+
     # -- host access ------------------------------------------------------
 
     def raw_bytes(self):
         """All table bytes in OXLI on-disk layout, host numpy."""
         return pack_oxli_bytes(self.spec, self.table)
 
+    def replace_table(self, bins):
+        """Take `bins` (int32 bit patterns of the u32 bins, on this
+        storage's device) as the table."""
+        if bins.shape != self.table.shape:
+            raise ValueError("expected {} bins, got {}".format(
+                self.table.numel(), tuple(bins.shape)))
+        self.table = bins
+        self._loaded_occupied = None
+        self._wrote()
+
     def set_raw_bytes(self, data, n_occupied=0):
         data = np.asarray(data, dtype=np.uint8)
         if data.size != self.spec.total_bytes:
             raise ValueError("raw byte size mismatch")
         self.table = unpack_oxli_bytes(self.spec, data, self.device)
+        self._wrote()
         self._n_unique.zero_()
         self._loaded_occupied = int(n_occupied)
         self.bigcount_candidates = set()
@@ -210,6 +290,7 @@ class BitStorage(Storage):
         torch.maximum(self.table, other.table ^ flip, out=self.table)
         self.table.bitwise_xor_(flip)
         self._loaded_occupied = None
+        self._wrote()
 
 
 class ByteStorage(Storage):

@@ -5,7 +5,10 @@ khmer/_oxli/parsing.pyx pairing checks)."""
 
 import sys
 
-from khmer_tpu_torch.io.fastx import write_record  # noqa: F401
+from khmer_tpu_torch.io.fastx import (  # noqa: F401
+    write_record,
+    write_record_pair,
+)
 
 
 def print_error(msg):

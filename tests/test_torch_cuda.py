@@ -1606,3 +1606,162 @@ def test_knot_scripts_small_on_card(dev, tmp_path):
     for name in ("hash2bit_canonical", "sketch_update", "sketch_get",
                  "bin_scatter_add"):
         assert launches[name], name
+
+
+# slice 4c: the host count snapshot, the read aligner, labels and the
+# sandbox scripts on the card
+
+
+def _slice4c_reads(path, seed, n=300, genome_len=2000, names=None,
+                   coding=False):
+    """n reads of 100 bases over a random genome (of stop-free codons when
+    `coding`), 0.5% substitutions, half reverse-complemented, named
+    names(i) (default r<i>); returns the sequences."""
+    rng = np.random.default_rng(seed)
+    if coding:
+        codons = [a + b + c for a in "ACGT" for b in "ACGT" for c in "ACGT"
+                  if a + b + c not in ("TAA", "TAG", "TGA")]
+        genome = "".join(codons[i] for i in
+                         rng.integers(0, len(codons), genome_len // 3))
+    else:
+        genome = "".join("ACGT"[c] for c in rng.integers(0, 4, genome_len))
+    seqs = []
+    for i in range(n):
+        s = int(rng.integers(0, len(genome) - 99))
+        r = list(genome[s:s + 100])
+        for p in np.nonzero(rng.random(100) < 0.005)[0]:
+            r[p] = "ACGT"[int(rng.integers(4))]
+        r = "".join(r)
+        if rng.random() < 0.5:
+            r = r[::-1].translate(str.maketrans("ACGT", "TGCA"))
+        seqs.append(r)
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(">%s\n%s\n" % (names(i) if names else "r%d" % i, s))
+    return seqs
+
+
+@pytest.mark.parametrize("cls", ["Countgraph", "Nodegraph"])
+def test_snapshot_on_card(dev, tmp_path, cls):
+    """host_counts equals get_batch on the card (capped, no loaded map)
+    after each writer of the table, a snapshot taken before each."""
+    import khmer_tpu_torch
+
+    seqs = _slice4c_reads(str(tmp_path / "r.fa"), 41)
+    g = getattr(khmer_tpu_torch, cls)(20, 20011, 4, device=dev)
+    hashes = np.unique(np.concatenate(
+        [np.asarray(g.get_kmer_hashes(s), np.uint64) for s in seqs]))
+    pairs = [(seqs[i], seqs[i + 1]) for i in range(0, 200, 2)]
+    other = getattr(khmer_tpu_torch, cls)(20, 20011, 4, device=dev)
+    other.consume(seqs[250])
+    writers = [
+        lambda: [g.consume(s) for s in seqs[:50]],
+        lambda: g.storage.add_batch(np.repeat(hashes[:20], 300)),
+        lambda: g.consume_seqfile_and_tag(str(tmp_path / "r.fa")),
+        lambda: g.diginorm_batch(pairs[:50], 5),
+        lambda: g.trim_pass1_batch(pairs[50:], 3),
+        lambda: g.storage.set_raw_bytes(other.storage.raw_bytes()),
+        lambda: g.storage.replace_table(torch.ones_like(g.storage.table))]
+    if cls == "Nodegraph":
+        writers.append(lambda: g.update(other))
+    for write in writers:
+        g.storage.host_counts(hashes[:1])
+        write()
+        got = g.storage.host_counts(hashes)
+        assert np.array_equal(got, g.storage.get_batch(hashes))
+
+
+def test_read_aligner_on_card(dev, tmp_path):
+    """align, align_forward and align_many against a card table equal the
+    same calls against the CPU table, also after more adds."""
+    from khmer_tpu_torch import Countgraph, ReadAligner
+
+    seqs = _slice4c_reads(str(tmp_path / "r.fa"), 42, n=400)
+    graphs = {d: Countgraph(20, 20011, 4, device=d) for d in (dev, "cpu")}
+    out = {}
+    for d, g in graphs.items():
+        for s in seqs[:250]:
+            g.consume(s)
+        al = ReadAligner(g, 2, 1.0)
+        got = [al.align(s) for s in seqs[250:300]]
+        got += [al.align_forward(s) for s in seqs[250:300]]
+        got += al.align_many(seqs[300:350])
+        g.storage.add_batch(np.asarray(g.get_kmer_hashes(seqs[300]),
+                                       np.uint64))
+        got += [al.align(s) for s in seqs[350:]]
+        out[str(d)] = got
+    assert out[str(dev)] == out["cpu"]
+
+
+@pytest.mark.parametrize("radius", [0, 5, None])
+def test_batched_sweep_on_card(dev, tmp_path, radius):
+    """sweep_label_neighborhood_batch on the card equals one sweep a read,
+    and the CPU's, with stop tags and with the big-traversal abort."""
+    from khmer_tpu_torch import GraphLabels
+
+    fa = str(tmp_path / "ref.fa")
+    seqs = _slice4c_reads(fa, 43, n=200,
+                          names=lambda i: "r%d\t%d" % (i, i % 4))
+    out = {}
+    for d in (dev, "cpu"):
+        gl = GraphLabels.NodeGraphLabels(21, 20011, 4, device=d)
+        gl.consume_partitioned_fasta_and_tag_with_labels(fa)
+        gl.graph.stop_tags = set(sorted(gl.graph.all_tags)[::5])
+        got = []
+        for stop in (False, True):
+            for big in (False, True):
+                batch = gl.sweep_label_neighborhood_batch(
+                    seqs[:60] + ["ACGT"], radius, stop, big)
+                assert batch == [gl.sweep_label_neighborhood(
+                    s, radius, stop, big) for s in seqs[:60] + ["ACGT"]]
+                got.append(batch)
+        out[str(d)] = got
+    assert out[str(dev)] == out["cpu"]
+
+
+def test_slice4c_scripts_small_on_card(dev, tmp_path):
+    """correct-reads, sweep-reads and assemble-on-the-go (its Countgraph
+    cut to 4 x 20011 bins) on the card write the CPU run's bytes."""
+    import contextlib
+    import io
+    import os
+    from unittest import mock
+
+    from khmer_tpu_torch import Countgraph
+    from khmer_tpu_torch.sandbox import (assemble_on_the_go, correct_reads,
+                                         sweep_reads)
+
+    _slice4c_reads(str(tmp_path / "pairs.fa"), 44, n=600,
+                   names=lambda i: "p%d/%d" % (i // 2, 1 + i % 2))
+    _slice4c_reads(str(tmp_path / "ref.fa"), 45, n=150,
+                   names=lambda i: "r%d\t%d" % (i, i % 3))
+    _slice4c_reads(str(tmp_path / "reads.fa"), 45, n=60)
+    _slice4c_reads(str(tmp_path / "coding.fa"), 46, n=180, genome_len=450,
+                   coding=True)
+    runs = [(correct_reads, ["-k", "20", "-N", "4", "-x", "2e4", "-Z", "10",
+                             "../pairs.fa"]),
+            (sweep_reads, ["--label-by-pid", "-N", "1", "--outdir", ".",
+                           "../ref.fa", "../reads.fa"]),
+            (assemble_on_the_go, ["../coding.fa"])]
+    small = mock.patch.object(assemble_on_the_go, "Countgraph",
+                              lambda k, size, n, **kw: Countgraph(
+                                  k, 20011, n, **kw))
+    out = {}
+    here = os.getcwd()
+    for d in (dev, "cpu"):
+        wd = tmp_path / str(d)
+        wd.mkdir()
+        os.chdir(str(wd))
+        stdout = io.StringIO()
+        try:
+            with small, contextlib.redirect_stdout(stdout), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                for module, argv in runs:
+                    module.main(argv, device=d)
+        finally:
+            os.chdir(here)
+        out[str(d)] = (stdout.getvalue(),
+                       {f: open(str(wd / f), "rb").read()
+                        for f in sorted(os.listdir(str(wd)))})
+    assert out[str(dev)] == out["cpu"]
+    assert "pairs.fa.corr" in out["cpu"][1] and ">orf" in out["cpu"][0]
