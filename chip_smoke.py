@@ -28,11 +28,18 @@ Phases (any failure exits non-zero; nothing is caught):
      count of the canonical k-mers (n_unique within the collision bound
      of the table sizes; both histogram totals equal to the distinct
      count, which is within one membership window).  Every kernel of
-     this path must have been launched by this run; its peak device
-     memory is printed, and the save's and load's byte packing
-     (pack_oxli_bytes, unpack_oxli_bytes, occupied_bins: plain torch and
-     numpy) is timed on the loaded table beside its bytes bound and its
-     calls on the path;
+     this path must have been launched by this run (K13 and K14 by the
+     .ct's save); its peak device memory is printed, and the save (K14's
+     packing, the copy of its stream and the whole route, beside
+     khmer_tpu's sparse alternative measured as a yardstick: the nonzero
+     pairs by torch.nonzero, their copy and their host assembly), the
+     load's widening and K13's count are timed on the loaded table beside
+     the bytes that cross to the host and their calls on the path;
+  3g. K13 (count_nonzero) and K14 (pack_oxli_bytes, each kind) against
+     their plain versions on the card, bit for bit: the phase-4 .ct's
+     table, an empty and a full table of its geometry (bins >= 2**31
+     among them), tables one nonzero bin below and above each kind's
+     khmer_tpu sparse-save threshold, and geometries of odd sizes;
   3b. slice-2 kernels against their plain versions on the card, exact:
      K5 on 16,384 rows x 148 codes of the phase-4 reads against the
      phase-4 .ct, with and without hashes (and K1 + K3 back to back on
@@ -100,9 +107,10 @@ Phases (any failure exits non-zero; nothing is caught):
      through the plain versions on the card (every file in the working
      directory after every script identical) and (b) the device engine's
      partitions, as sets of tags, equal to do_partition's.  K1, K2, K3
-     and K10 must have been launched by this run; walls, reads/s, device
-     busy shares, the largest device items, tags, edges, CC rounds and
-     peak device memory are printed.
+     and K10 must have been launched by this run, and K14 by
+     load-graph's dense bit save; walls, reads/s, device busy shares, the
+     largest device items, tags, edges, CC rounds and peak device memory
+     are printed.
   3d. K10 against its plain version on the card, exact: labels and the
      changed flag at rounds = 1 and 8 from arange labels, and the labels
      and number of calls at connected_components' fixpoint, on a path of
@@ -196,6 +204,17 @@ Phases (any failure exits non-zero; nothing is caught):
      labelled, multi-labelled and orphaned reads, ORFs, assemblies,
      assembler steps and us a step, K3 launches, walls and device busy
      shares are printed.
+  12. the quotient filter (slice 5): normalize-by-median --mqf and
+     --bmqf (-C 5) and trim-low-abund --mqf (-k 20, -U the exact
+     distinct 20-mers) on the first 160,000 phase-5 reads, and a
+     QFCounttable consume, save, load and query on the first 20,000.
+     The scripts are held against the same runs through the plain
+     versions on the card (stdout, every stderr line and every file);
+     K8's hashes of all 160,000 reads against its plain version's, and
+     the table against an oracle from them (n_unique before and after
+     the load = the distinct keys, sampled counts exact); K8, K6 and K7
+     must have been launched; walls, device busy shares and K8 launches
+     are printed.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -252,11 +271,16 @@ SOURCES = {
                           "khmer_tpu/hashtable.py:472"),
     "band_mask_weights": ("khmer_tpu_torch/kernels/csrc/filter.cu",
                           "khmer_tpu/hashtable.py:141"),
+    "count_nonzero": ("khmer_tpu_torch/kernels/csrc/save.cu",
+                      "khmer_tpu/ops/sketch_ops.py:234"),
+    "pack_oxli_bytes": ("khmer_tpu_torch/kernels/csrc/save.cu",
+                        "khmer_tpu/ops/sketch_ops.py:246"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
 MAIN_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
-             "abund_hist", "bin_scatter_add")
+             "abund_hist", "bin_scatter_add", "count_nonzero",
+             "pack_oxli_bytes")
 SLICE2_PATH = ("row_counts", "diginorm_chain", "trim_chain",
                "hash2bit_canonical", "sketch_update", "sketch_get",
                "bin_scatter_add")
@@ -272,7 +296,7 @@ HLL_PS = (14, 16)  # -e 0.01 and 0.005
 MURMUR_PATH = ("murmur_hashes", "hll_update", "row_counts", "sketch_update",
                "sketch_get", "diginorm_chain")
 FLAT = 1 << 23  # bases of the flat chunk in phase 3c
-# the save's and load's byte packing, timed in phase 4
+# the save, the load's widening and the count, timed in phase 4
 PACKING = ("pack_oxli_bytes", "unpack_oxli_bytes", "occupied_bins")
 # the partitioning path (phase 7): BASELINE config 5 at the documented
 # workflow's flags (docs/user/partitioning-big-data.md), the table cut
@@ -282,7 +306,7 @@ PARTITION_K = 32
 PARTITION_GENOMES = 500
 PARTITION_READS = 200_000
 PARTITION_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
-                  "cc_rounds")
+                  "cc_rounds", "pack_oxli_bytes")
 # slice 3b (phases 3e and 8): K11's k in phase 3e, the nibble kind's read
 # cap, phase 8's cut of the phase-5 file and the kernels its path runs
 CYCLIC_KS = (K, MURMUR_K, 64, 65, 128)
@@ -320,6 +344,15 @@ SWEEP_REF_READS = 100_000
 SWEEP_READS = 40_000
 OTG_READS = 5_000
 OTG_GENOME = 12_500
+# slice 5 (phase 12): the kernels the quotient filter's path runs (the
+# filter itself lives on the host) and its cut of the phase-5 file (the
+# runs are host-bound: 111 s for the three scripts on the whole file, 46 s
+# on its first 160,000 reads, before their plain runs)
+QF_PATH = ("murmur_hashes", "diginorm_chain", "trim_chain")
+QF_READS = 160_000
+# the QFCounttable's reads: its save and load are the copied MQF codec's
+# Python loop, about 7 us a key each way on the host
+QF_TABLE_READS = 20_000
 SLICE4C_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
                 "row_counts")
 
@@ -955,16 +988,22 @@ def main_path(seed, card, dev, tmp, genome_mb=3.2):
 
 
 def time_packing(st, calls, dev, card):
-    """The OXLI packing of a loaded 4 x 1e8-bin table on the card (plain
-    torch and numpy, not kernels): the wall of one call, synchronised,
-    median of three, beside its bytes bound (the table's bins and the
-    stream's bytes, each moved once) and its calls on the main path."""
-    from khmer_tpu_torch.ops.sketch_ops import (occupied_bins,
-                                                pack_oxli_bytes,
-                                                unpack_oxli_bytes)
+    """The save on a loaded 4 x 1e8-bin table on the card, each part
+    apart: K14 (the stream packed), the pageable copy of the stream and
+    the whole of raw_bytes; beside it, as a yardstick, khmer_tpu's sparse
+    save of the same table (storage.py:300-313) done with library calls:
+    the nonzero (bin, value) pairs by torch.nonzero and indexing, their
+    pageable copy, and the stream's assembly from them on the host.  Then
+    the load's widening and K13's count.  Walls of one call,
+    synchronised, median of three, with the bytes that cross to the host
+    and the calls on the main path."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.ops.sketch_ops import occupied_bins, unpack_oxli_bytes
 
     spec = st.spec
-    raw = pack_oxli_bytes(spec, st.table)
+    sizes, offsets, _ = spec.geometry(dev)
 
     def wall(fn):
         times = []
@@ -976,17 +1015,42 @@ def time_packing(st, calls, dev, card):
             times.append(time.perf_counter() - t0)
         return statistics.median(times) * 1e3
 
-    table_bytes = 4 * (spec.total_bins + 1)
-    for name, fn, nbytes in (
-            ("pack_oxli_bytes", lambda: pack_oxli_bytes(spec, st.table),
-             table_bytes + raw.size),
-            ("unpack_oxli_bytes", lambda: unpack_oxli_bytes(spec, raw, dev),
-             raw.size + table_bytes),
-            ("occupied_bins", lambda: occupied_bins(spec, st.table),
-             4 * spec.tablesizes[0])):
-        log("packing {}: {:.4f} ms a call (wall, synchronised), bound {:.4f} "
-            "ms ({} bytes), {} calls on the main path [{}]".format(
-                name, wall(fn), bound_ms(nbytes), nbytes, calls[name], card))
+    def pairs():
+        at = torch.nonzero(st.table[:spec.total_bins]).squeeze(1)
+        return at.to(torch.int32), st.table[at]
+
+    def assemble(idx, vals):
+        # the byte kind's stream: one sparse store into a zeroed stream
+        out = np.zeros(spec.total_bytes, np.uint8)
+        out[idx.view(np.uint32)] = np.minimum(vals.view(np.uint32), 255)
+        return out
+
+    stream = kernels.pack_oxli_bytes(st.table, spec.kind, sizes, offsets,
+                                     spec.bytes_per_table)
+    raw = stream.cpu().numpy()
+    idx, vals = pairs()
+    hidx, hvals = idx.cpu().numpy(), vals.cpu().numpy()
+    if spec.kind != "byte" or not np.array_equal(assemble(hidx, hvals), raw):
+        fail("the sparse yardstick gives another stream than K14")
+    parts = {
+        "K14": wall(lambda: kernels.pack_oxli_bytes(
+            st.table, spec.kind, sizes, offsets, spec.bytes_per_table)),
+        "copy of the stream": wall(lambda: stream.cpu()),
+        "raw_bytes": wall(st.raw_bytes),
+        "yardstick: pairs (torch.nonzero, indexing)": wall(pairs),
+        "yardstick: copy of the pairs": wall(lambda: (idx.cpu(),
+                                                      vals.cpu())),
+        "yardstick: host assembly": wall(lambda: assemble(hidx, hvals)),
+        "yardstick: sparse save": wall(lambda: assemble(
+            *(t.cpu().numpy() for t in pairs()))),
+        "unpack_oxli_bytes": wall(lambda: unpack_oxli_bytes(spec, raw, dev)),
+        "occupied_bins (K13)": wall(lambda: occupied_bins(spec, st.table)),
+    }
+    log("packing on the loaded table ({} bins, {} nonzero): bytes to the "
+        "host {} (the stream) vs {} for the sparse yardstick (8 a pair); "
+        "walls (ms, synchronised): {}; calls on the main path: {} [{}]"
+        .format(spec.total_bins, hidx.size, raw.size, 8 * hidx.size,
+                json.dumps(parts), json.dumps(calls), card))
 
 
 def device_share(name, fn, card):
@@ -1028,6 +1092,127 @@ def device_share(name, fn, card):
             card, "; ".join("{} {:.3f}".format(n[:48], us / 1e3)
                             for n, us in top)))
     return wall, busy
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: K13 and K14 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def save_tables(spec, loaded, seed):
+    """(name, table) pairs on the loaded table's geometry: the loaded
+    table, an empty one, a full one (every bin nonzero, a tenth at or
+    above 2**31) and, for each kind, one whose nonzero bins lie one below
+    and one above khmer_tpu's sparse-save threshold (random bins and
+    values).  Made one at a time on the card."""
+    import torch
+
+    from khmer_tpu_torch.ops.sketch_ops import SketchSpec
+
+    n, dev = spec.total_bins, loaded.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def values(m):
+        v = torch.randint(1, 1 << 31, (m,), generator=gen, device=dev,
+                          dtype=torch.int64)
+        big = torch.rand(m, generator=gen, device=dev) < 0.1
+        return torch.where(big, -v, v).to(torch.int32)
+
+    yield "loaded", loaded
+    yield "empty", torch.zeros_like(loaded)
+    full = values(loaded.numel())
+    full[-1] = 0
+    yield "full", full
+    del full
+    for kind in ("byte", "nibble", "bit"):
+        threshold = SketchSpec(kind, spec.tablesizes).total_bytes // 24
+        for side, nz in (("below", threshold - 1), ("above", threshold + 1)):
+            t = torch.zeros_like(loaded)
+            at = torch.randperm(n, generator=gen, device=dev)[:nz]
+            t[at] = values(nz)
+            yield "{}-{}".format(side, kind), t
+            del t, at
+
+
+def check_save_kernels(seed, dev, ct, rec):
+    """K13 (count_nonzero) and K14 (pack_oxli_bytes) against their plain
+    versions on the card, bit for bit, on the tables of save_tables (the
+    phase-4 .ct's 4 x ~1e8 bins), K14 in each kind, and on geometries of
+    odd sizes; times on the loaded table (K14 in the byte kind, the .ct's
+    save, with the nibble and bit kinds beside it)."""
+    import torch
+
+    from khmer_tpu_torch import Countgraph, kernels
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.ops.sketch_ops import SketchSpec
+
+    log("phase 3g: K13 and K14 on the phase-4 .ct's table and on empty, "
+        "full and threshold tables of its geometry, in each kind")
+    g = Countgraph.load(ct, device=dev)
+    loaded, spec = g.storage.table, g.storage.spec
+    del g
+    geom = {kind: SketchSpec(kind, spec.tablesizes) for kind in
+            ("byte", "nibble", "bit")}
+    sizes, offsets, _ = spec.geometry(dev)
+    errs = {"count_nonzero": 0, "pack_oxli_bytes": 0}
+    seen = {}
+
+    def compare(table, gsizes, goffsets, tables):
+        for lo, hi in ((0, int(tables[0])), (0, table.numel()),
+                       (1, table.numel() - 1)):
+            errs["count_nonzero"] = max(errs["count_nonzero"], max_abs_err(
+                kernels.count_nonzero(table, lo, hi),
+                plain.count_nonzero(table, lo, hi)))
+        for kind in ("byte", "nibble", "bit"):
+            bpt = SketchSpec(kind, tables).bytes_per_table
+            errs["pack_oxli_bytes"] = max(
+                errs["pack_oxli_bytes"], max_abs_err(
+                    kernels.pack_oxli_bytes(table, kind, gsizes, goffsets,
+                                            bpt),
+                    plain.pack_oxli_bytes(table, kind, gsizes, goffsets,
+                                          bpt)))
+        return int(plain.count_nonzero(table, 0, sum(tables)))
+
+    for name, table in save_tables(spec, loaded, seed):
+        seen[name] = compare(table, sizes, offsets, spec.tablesizes)
+        del table
+        torch.cuda.empty_cache()
+    for tables in ((1009, 1013, 1019), (7,), (9, 16, 17), (3,) * 32):
+        small = SketchSpec("byte", tables)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + len(tables))
+        t = torch.randint(-(1 << 31), 1 << 31, (small.total_bins + 1,),
+                          generator=gen, device=dev, dtype=torch.int64)
+        t = torch.where(t % 3 == 0, 0, t).to(torch.int32)
+        s_sizes, s_offsets, _ = small.geometry(dev)
+        seen["odd {}".format(tables[:3])] = compare(
+            t, s_sizes, s_offsets, tables)
+    log("K13/K14 inputs, nonzero bins: {}; khmer_tpu's sparse-save "
+        "thresholds (pairs): {}".format(json.dumps(seen), json.dumps(
+            {k: s.total_bytes // 24 for k, s in geom.items()})))
+
+    n = loaded.numel()
+    record_kernel(
+        rec, "count_nonzero", errs["count_nonzero"],
+        cuda_ms(lambda: kernels.count_nonzero(loaded, 0, n), 10),
+        cuda_ms(lambda: plain.count_nonzero(loaded, 0, n), 5), 4 * n,
+        library_ms=cuda_ms(lambda: torch.count_nonzero(loaded), 10),
+        nonzero=seen["loaded"])
+    by_kind = {}
+    for kind, ks in geom.items():
+        bpt = ks.bytes_per_table
+        by_kind[kind] = dict(
+            ms=cuda_ms(lambda: kernels.pack_oxli_bytes(
+                loaded, kind, sizes, offsets, bpt), 10),
+            plain_ms=cuda_ms(lambda: plain.pack_oxli_bytes(
+                loaded, kind, sizes, offsets, bpt), 3),
+            bound_ms=bound_ms(4 * spec.total_bins + ks.total_bytes))
+    byte = by_kind.pop("byte")
+    record_kernel(rec, "pack_oxli_bytes", errs["pack_oxli_bytes"],
+                  byte["ms"], byte["plain_ms"],
+                  4 * spec.total_bins + geom["byte"].total_bytes,
+                  kind="byte", other_kinds=by_kind)
 
 
 # ---------------------------------------------------------------------------
@@ -2963,7 +3148,6 @@ def knot_steps(fa):
         ("extract-partitions (filtered)", extract_partitions.main,
          ["lumpfilt-out", "lump.fa.stopfilt.part"])]
 
-
 KNOT_CHECKED = 7  # steps 1-4 (through filter-stoptags): held to plain runs
 
 
@@ -3435,6 +3619,238 @@ def run_slice4c(card, dev, tmp, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: slice 5, the quotient filter, at full width
+# ---------------------------------------------------------------------------
+
+
+def qf_hashes(seqs, dev, murmur, rows=1 << 16):
+    """The K8 hashes by `murmur` (the kernel's wrapper or its plain
+    version; khmer's full complement) of every 20-mer of 100-bp reads
+    (bytes), int64 on the card."""
+    import torch
+
+    byts = np.frombuffer(b"".join(seqs), np.uint8).reshape(len(seqs), -1)
+    out = []
+    for lo in range(0, byts.shape[0], rows):
+        b = torch.from_numpy(byts[lo: lo + rows].copy()).to(dev)
+        lengths = torch.full((b.shape[0],), b.shape[1], dtype=torch.int32,
+                             device=dev)
+        out.append(murmur(b, lengths, K)[0].reshape(-1))
+    return torch.cat(out)
+
+
+def qf_steps(pairs_fa, unique):
+    sizing = ["-k", str(K), "-U", str(unique)]
+    return [
+        ("normalize-by-median --mqf", "normalize_by_median",
+         sizing + ["--mqf", "-p", "-C", "5", "-o", "mqf.fa", pairs_fa]),
+        ("normalize-by-median --bmqf", "normalize_by_median",
+         sizing + ["--bmqf", "-p", "-C", "5", "-o", "bmqf.fa", pairs_fa]),
+        ("trim-low-abund --mqf", "trim_low_abund",
+         sizing + ["--mqf", "-C", "2", "-o", "trim.fa", pairs_fa]),
+    ]
+
+
+def qf_table_run(table, dev):
+    """A QFCounttable of table["slots"] slots (rounded up to a power of
+    two): consume table["fa"], save, load and read the counts of the
+    table["sample"] hashes and the median counts of the reads
+    table["heads"]."""
+    from khmer_tpu_torch import QFCounttable
+
+    qf = QFCounttable(K, table["slots"], device=dev)
+    out = {"consume": qf.consume_seqfile(table["fa"]),
+           "n_unique": qf.n_unique_kmers(), "range": int(qf.storage.range)}
+    qf.save("table.qf")
+    loaded = QFCounttable.load("table.qf", device=dev)
+    out["loaded n_unique"] = loaded.n_unique_kmers()
+    out["sample counts"] = loaded.storage.get_batch(
+        table["sample"]).tolist()
+    out["medians"] = hashlib.sha256(json.dumps(
+        loaded.get_median_count_batch(table["heads"])).encode()).hexdigest()
+    return out
+
+
+def qf_runs(workdir, pairs_fa, unique, table, dev, profile, card):
+    """Phase 12's runs on `dev`, in `workdir` (the QFCounttable's when
+    `table` is not None): walls (and device busy seconds when `profile`),
+    stdout, stderr lines (the temporary directory's name marked), the
+    sha256 of every file written, K8 launches and the QFCounttable's
+    results."""
+    import importlib
+    import re
+
+    from khmer_tpu_torch import kernels, khmer_logger
+
+    os.makedirs(workdir)
+    out = {"walls": {}, "busy": {}, "k8": {}, "outputs": {}}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        steps = qf_steps(pairs_fa, unique) + (
+            [("QFCounttable", None, None)] if table is not None else [])
+        for name, module, argv in steps:
+            stdout, stderr = io.StringIO(), io.StringIO()
+            got = {}
+
+            def run():
+                # the banner prints before a script reads -q: start each
+                # run from the same logging state
+                khmer_logger.configure_logging(False)
+                with contextlib.redirect_stdout(stdout), \
+                        contextlib.redirect_stderr(stderr):
+                    if module is None:
+                        got.update(qf_table_run(table, dev))
+                    else:
+                        importlib.import_module(
+                            "khmer_tpu_torch.scripts." + module).main(
+                                argv, device=dev)
+
+            before = kernels.LAUNCHES["murmur_hashes"]
+            sync(dev)
+            try:
+                if profile:
+                    wall, busy = device_share(name, run, card)
+                    out["busy"][name] = busy
+                else:
+                    t0 = time.perf_counter()
+                    run()
+                    sync(dev)
+                    wall = time.perf_counter() - t0
+            except BaseException:
+                sys.stderr.write(stderr.getvalue()[-20000:])
+                raise
+            out["walls"][name] = wall
+            out["k8"][name] = kernels.LAUNCHES["murmur_hashes"] - before
+            files_now = {}
+            for f in sorted(os.listdir(".")):
+                with open(f, "rb") as fh:
+                    files_now[f] = hashlib.sha256(fh.read()).hexdigest()
+            out["outputs"][name] = (
+                stdout.getvalue(),
+                [re.sub(r"\S*tmp\w+khmer", "<tmp>", ln)
+                 for ln in stderr.getvalue().splitlines()], files_now)
+            if got:
+                out["table"] = got
+            log("phase 12 {} done, {:.1f} s into the smoke".format(
+                name, time.perf_counter() - STARTED))
+            gc.collect()
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def run_qf(card, dev, tmp, pairs_fa, seed):
+    """Phase 12: normalize-by-median --mqf and --bmqf and trim-low-abund
+    --mqf on the first QF_READS reads of the phase-5 file, -k 20 and -U
+    their exact distinct k-mers, through the kernels (profiled) and
+    through the plain versions, and a QFCounttable on the first
+    QF_TABLE_READS, held to an oracle from the plain K8 hashes, which the
+    kernel's equal.  Returns the path's launches."""
+    import torch
+
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+
+    t_phase = time.perf_counter()
+    qf_fa = os.path.join(tmp, "qf.fa")
+    table = {"fa": os.path.join(tmp, "qf_table.fa")}
+    with open(pairs_fa, "rb") as f:
+        head = f.read(QF_READS * 114)
+    for path, n in ((qf_fa, QF_READS), (table["fa"], QF_TABLE_READS)):
+        with open(path, "wb") as g:
+            g.write(head[:n * 114])
+    seqs = head.split(b"\n")[1::2]
+    del head
+    table["heads"] = [r.decode() for r in seqs[:BATCH]]
+    h = qf_hashes(seqs, dev, plain.murmur_hashes)
+    if not torch.equal(qf_hashes(seqs, dev, kernels.murmur_hashes), h):
+        fail("phase 12: K8's hashes of the reads differ from its plain "
+             "version's")
+    del seqs
+    unique = int(torch.unique(h).numel())
+    # the table's hashes: its reads' windows lead h, 81 a read
+    ht = h[:QF_TABLE_READS * (100 - K + 1)]
+    table_unique = int(torch.unique(ht).numel())
+    # the classic constructor (8 remainder bits), with room for the count
+    # slots: at 40x most keys take two slots in the saved dump
+    table["slots"] = 4 * table_unique
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sample = ht[torch.randint(0, ht.numel(), (4096,), generator=gen,
+                              device=dev)]
+    table["sample"] = _u64_numpy(sample)
+    log("phase 12: the quotient filter: the scripts on the first {} reads "
+        "of the phase-5 file ({} 20-mers, {} distinct: -U), the table on "
+        "the first {} ({} distinct); {:.1f} s to hash them with K8 and its "
+        "plain version, equal".format(QF_READS, h.numel(), unique, QF_TABLE_READS,
+                    table_unique, time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    got = qf_runs(os.path.join(tmp, "p12_kernels"), qf_fa, unique, table,
+                  dev, True, card)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("phase 12 launches: {}; K8 by run: {}".format(
+        json.dumps(launches), json.dumps(got["k8"])))
+    log("phase 12 peak device memory: {} bytes = {:.3f} GiB "
+        "(max_memory_allocated) [{}]".format(peak, peak / 2 ** 30, card))
+    missing = [k for k in QF_PATH if launches[k] == 0] + \
+        [name for name, n in got["k8"].items() if n == 0]
+    if missing:
+        fail("kernels not launched by the QF path: {}".format(missing))
+    for name, wall in got["walls"].items():
+        busy = got["busy"].get(name)
+        reads = QF_TABLE_READS if name == "QFCounttable" else QF_READS
+        log("{}: {:.3f} s (profiled), {:.0f} reads/s, device busy {} [{}]"
+            .format(name, wall, reads / wall,
+                    "not measured" if busy is None else
+                    "{:.3f} s = {:.1f}%".format(busy, 100 * busy / wall),
+                    card))
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        ref = qf_runs(os.path.join(tmp, "p12_plain"), qf_fa, unique, None,
+                      dev, False, card)
+    log("phase 12 plain-version walls (s): {} [{}]".format(
+        json.dumps(ref["walls"]), card))
+    for name in ref["outputs"]:
+        if got["outputs"][name] != ref["outputs"][name]:
+            fail("phase 12 {} differs from its plain run (stdout, stderr or "
+                 "files)".format(name))
+    # the oracle: the filter's keys are the hashes mod its range
+    result = got["table"]
+    keys = ht & (result["range"] - 1)
+    uniq, counts = torch.unique(keys, return_counts=True)
+    want = counts[torch.searchsorted(uniq, sample & (result["range"] - 1))]
+    want = (want & 0xFFFF).tolist()
+    if result["n_unique"] != uniq.numel() or \
+            result["loaded n_unique"] != uniq.numel() or \
+            result["sample counts"] != want:
+        fail("phase 12 oracle: n_unique {} (loaded {}) against {} distinct "
+             "keys, {} of 4096 sampled counts off".format(
+                 result["n_unique"], result["loaded n_unique"], uniq.numel(),
+                 sum(a != b for a, b in zip(result["sample counts"], want))))
+    kept = {name: count_records(os.path.join(tmp, "p12_kernels", f))
+            for name, f in (("--mqf", "mqf.fa"), ("--bmqf", "bmqf.fa"),
+                            ("trim --mqf", "trim.fa"))}
+    if kept["--mqf"] != kept["--bmqf"] or \
+            not 0 < kept["--mqf"][0] < QF_READS:
+        fail("phase 12 kept {}".format(json.dumps(kept)))
+    log("kernels == plain on the card: stdout, stderr and every file of the "
+        "three scripts; oracle: n_unique {} == distinct murmur % {} keys of "
+        "the plain K8 hashes, 4096 sampled counts exact; consume {}; reads, "
+        "bases written {}; phase 12: {:.1f} s with its plain runs [{}]"
+        .format(result["n_unique"], result["range"], result["consume"],
+                json.dumps(kept), time.perf_counter() - t_phase, card))
+    return launches
+
+
+def _u64_numpy(t):
+    return t.cpu().numpy().view(np.uint64)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3461,6 +3877,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="khmer_smoke_") as tmp:
         launches, uniq4 = main_path(args.seed, card, dev, tmp)
         ct = os.path.join(tmp, "kernels", "reads.ct")
+        check_save_kernels(args.seed, dev, ct, rec)
         reads_fa = os.path.join(tmp, "reads.fa")
         pairs_fa, head_fa = make_slice2_files(args.seed, tmp)
         check_slice2_kernels(args.seed, dev, ct, reads_fa, pairs_fa, rec)
@@ -3475,11 +3892,13 @@ def main():
         slice10 = run_slice10(card, dev, tmp, reads_fa, pairs_fa, ct, uniq4)
         run_knots(card, dev, tmp, args.seed)
         run_slice4c(card, dev, tmp, args.seed)
+        run_qf(card, dev, tmp, pairs_fa, args.seed)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by
     # the partitioning path (phase 7), K11 and K5c by the slice-3b path
-    # (phase 8), K12 by the slice-10 path (phase 9)
+    # (phase 8), K12 by the slice-10 path (phase 9); K13 and K14 by the
+    # main path's saves
     launches.update({k: slice2[k] for k in SOURCES
                      if k not in MAIN_PATH and k in slice2})
     launches.update({k: murmur[k] for k in ("murmur_hashes", "hll_update")})

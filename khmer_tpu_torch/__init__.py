@@ -37,7 +37,10 @@ filter-stoptags and do-partition; labels, assembly and the read aligner
 (slice 4c): GraphLabels, LinearAssembler, SimpleLabeledAssembler,
 JunctionCountAssembler, ReadAligner, ``assemble_linear_path``, and the
 sandbox scripts correct-reads, sweep-reads and assemble-on-the-go
-(``khmer_tpu_torch.sandbox.<name>``).
+(``khmer_tpu_torch.sandbox.<name>``); the quotient filter (slice 5):
+QFCounttable, OnDiskQFCounttable and BufferedQFCounttable (behind
+``--mqf``/``--bmqf`` in normalize-by-median and ``--mqf`` in
+trim-low-abund), host-exact as khmer_tpu's.
 """
 
 from collections import namedtuple
@@ -50,8 +53,10 @@ from khmer_tpu_torch.assembly import (JunctionCountAssembler, LinearAssembler,
 from khmer_tpu_torch.graph import (Countgraph, Hashgraph, Nodegraph,
                                    SmallCountgraph)
 from khmer_tpu_torch.hashset import HashSet
-from khmer_tpu_torch.hashtable import (Counttable, CyclicCounttable,
-                                       Nodetable, SmallCounttable)
+from khmer_tpu_torch.hashtable import (BufferedQFCounttable, Counttable,
+                                       CyclicCounttable, Nodetable,
+                                       OnDiskQFCounttable, QFCounttable,
+                                       SmallCounttable)
 from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.io.fastx import FastxReader, Read
 from khmer_tpu_torch.io.oxli_format import FILETYPES
@@ -71,11 +76,13 @@ from khmer_tpu_torch.partitioning import PrePartitionInfo, SubsetPartition
 from khmer_tpu_torch.primes import get_n_primes_near_x, is_prime
 from khmer_tpu_torch.readaligner import ReadAligner
 
-__all__ = ["Countgraph", "Counttable", "CyclicCounttable", "FastxParser",
-           "FastxReader", "GraphLabels", "HLLCounter", "HashSet", "Hashbits",
-           "Hashgraph", "JunctionCountAssembler", "Kmer", "LinearAssembler",
-           "Nodegraph", "Nodetable", "PrePartitionInfo", "Read", "ReadAligner",
-           "ReadParser", "SimpleLabeledAssembler", "SmallCountgraph",
+__all__ = ["BufferedQFCounttable", "Countgraph", "Counttable",
+           "CyclicCounttable", "FastxParser", "FastxReader", "GraphLabels",
+           "HLLCounter", "HashSet", "Hashbits", "Hashgraph",
+           "JunctionCountAssembler", "Kmer", "LinearAssembler", "Nodegraph",
+           "Nodetable", "OnDiskQFCounttable", "PrePartitionInfo",
+           "QFCounttable", "Read", "ReadAligner", "ReadParser",
+           "SimpleLabeledAssembler", "SmallCountgraph",
            "SmallCounttable", "SubsetPartition",
            "__version__", "__version_cpp__", "calc_expected_collisions",
            "extract_countgraph_info", "extract_nodegraph_info",
@@ -88,6 +95,7 @@ ReadParser = FastxReader
 
 _buckets_per_byte = {
     # parity with reference khmer/__init__.py:86-93
+    'qfcounttable': 1 / 1.26,
     'countgraph': 1,
     'counttable': 1,
     'smallcountgraph': 2,

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch.graph import Countgraph
+from khmer_tpu_torch.hashtable import QFCounttable
 from khmer_tpu_torch.hllcounter import HLLCounter
 from khmer_tpu_torch.storage import BY_KIND
 
@@ -79,3 +80,20 @@ def hll_from_numpy(counters_u8, ksize, device=None):
     h = HLLCounter(int(regs.size), ksize, device=device)
     h.counters = regs
     return h
+
+
+def qf_from_numpy(ksize, nslots, slot_size, keys, counts, device=None):
+    """A QFCounttable of nslots slots (slot_size remainder bits, None for
+    the classic 8) holding the given sorted distinct uint64 keys with
+    their uint64 counts, as khmer_tpu's QFStorage.state_arrays() gives
+    them."""
+    keys = np.array(keys, np.uint64)
+    counts = np.array(counts, np.uint64)
+    if keys.shape != counts.shape or keys.ndim != 1 or \
+            (keys[1:] <= keys[:-1]).any():
+        raise ValueError("need sorted distinct keys with one count each")
+    t = QFCounttable(ksize, nslots, slot_size, device=device)
+    if keys.size and keys[-1] >= t.storage.range:
+        raise ValueError("a key lies outside the filter's key range")
+    t.storage.set_state_arrays(keys, counts)
+    return t

@@ -29,6 +29,12 @@ reads.  CyclicCounttable does the same over the cyclic hash, kernel K11
 (K5's cyclic variant for the row queries); that hash has one table for
 every byte, so it takes no complement form.  SmallCountgraph and
 SmallCounttable (NibbleStorage) run the same kernels at read cap 15.
+
+QFCounttable keeps khmer_tpu's design: the filter is a host-exact sorted
+(key, count) dictionary (storage.QFStorage), and the device hashes its
+reads with K8.  Its batch steps for the streaming filters take the
+decisions with K6 / K7 over the batch's distinct filter keys, so that
+they equal the reference's read-by-read loop.
 """
 
 import math
@@ -39,6 +45,7 @@ import torch
 from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import KSIZE_MAX, MAX_BIGCOUNT, MAX_KCOUNT
 from khmer_tpu_torch.io import oxli_format
+from khmer_tpu_torch.io.fastx import FastxReader
 from khmer_tpu_torch.ops import encode as enc
 from khmer_tpu_torch.ops.hashing import (chunk_hashes, compute_band_interval,
                                          cyclic_window_hashes,
@@ -48,7 +55,8 @@ from khmer_tpu_torch.ops.hashing import (chunk_hashes, compute_band_interval,
                                          row_hashes_counts)
 from khmer_tpu_torch.ops.rollinghash import hash_cyclic_scalar
 from khmer_tpu_torch.primes import get_n_primes_near_x
-from khmer_tpu_torch.storage import BitStorage, ByteStorage, NibbleStorage
+from khmer_tpu_torch.storage import (BitStorage, ByteStorage, NibbleStorage,
+                                     QFStorage)
 
 # bases per device chunk; any size gives the same table, counts and
 # histogram
@@ -731,16 +739,11 @@ class Hashtable:
 
     # -- streaming filters: one batch of read bundles per call ------------
 
-    def _chain_batch(self, seq_pairs, chain):
-        """One batch step of normalize-by-median or trim-low-abund
-        (khmer_tpu/hashtable.py:_make_diginorm_fn, _make_trim_pass1_fn):
-        the bundles' rows (pairs, a missing mate an empty row that is not
-        real) padded as khmer_tpu pads them, K1 (K8, K11) hashes, in-batch
-        ids (_batch_ids), K3 reads the distinct k-mers' counts before the
-        batch, and `chain(ids, valid, real, pre)` (K6 or K7) returns the
-        bundles' flags, a bool [B] of the bundles whose k-mers it tallied,
-        and the tally.  The tally then goes into the sketch in one K2
-        call (_flush_tally).  Returns what chain returned."""
+    def _bundle_hashes(self, seq_pairs):
+        """The hashes of a batch of bundles' rows (pairs, a missing mate
+        an empty row that is not real) padded as khmer_tpu pads them: K1
+        (K8, K11) hashes [R, W] with their valid windows, and the rows'
+        real flags (uint8 [R]) on the device."""
         rows, real = [], np.zeros(2 * len(seq_pairs), np.uint8)
         for i, (s0, s1) in enumerate(seq_pairs):
             rows += [s0, s1 if s1 is not None else ""]
@@ -755,11 +758,22 @@ class Hashtable:
                                                           kmer_hashes_2bit)
         h, valid = hash_rows(self._upload(codes), self._upload(lengths),
                              self._ksize)
+        return h, valid, self._upload(realarr)
+
+    def _chain_batch(self, seq_pairs, chain):
+        """One batch step of normalize-by-median or trim-low-abund
+        (khmer_tpu/hashtable.py:_make_diginorm_fn, _make_trim_pass1_fn):
+        the bundles' hashes (_bundle_hashes), in-batch ids (_batch_ids),
+        K3 reads the distinct k-mers' counts before the batch, and
+        `chain(ids, valid, real, pre)` (K6 or K7) returns the bundles'
+        flags, a bool [B] of the bundles whose k-mers it tallied, and the
+        tally.  The tally then goes into the sketch in one K2 call
+        (_flush_tally).  Returns what chain returned."""
+        h, valid, real = self._bundle_hashes(seq_pairs)
         ids, keys = _batch_ids(h, valid)
         del h
         valid = valid.to(torch.uint8)
-        out = chain(ids, valid, self._upload(realarr),
-                    self.storage.get_lanes(keys))
+        out = chain(ids, valid, real, self.storage.get_lanes(keys))
         self._flush_tally(keys, ids, valid, *out[-2:])
         return out[:-2]
 
@@ -1062,3 +1076,231 @@ class Nodetable(Hashtable):
 
     storage_class = BitStorage
     hash_kind = "murmur"
+
+
+class QFCounttable(Hashtable):
+    """Counting-quotient-filter counttable (graphs.pyx:413-452):
+    khmer_tpu/hashtable.py:1872-2009.
+
+    Counts are EXACT per key over the CQF key space `khash % (nslots *
+    2**slot bits)` and equal qf_count_key_value's (storage.QFStorage);
+    the slot-shifting insert of gqf.c is a sorted-dictionary merge on the
+    host, and the reads are hashed on the device with K8 (MurmurHash3, k
+    up to 255).  Saved as SAVED_QFCOUNT, the reference's raw MQF dump."""
+
+    storage_class = QFStorage
+    hash_kind = "murmur"
+
+    def __init__(self, k, size, slot_size=None, on_disk=None, device=None):
+        k = int(k)
+        if k < 1 or k > kernels.MURMUR_MAX_K:
+            raise ValueError("k-mer size must be in [1, 255]")
+        size = int(size)
+        if size & (size - 1):
+            # the reference rounds the slots up to a power of two
+            size = 1 << (size - 1).bit_length()
+        self.slot_size = slot_size  # MQF remainder width
+        self._ksize = k
+        self.storage = QFStorage(size, slot_size, on_disk=on_disk,
+                                 device=device)
+
+    def n_tables(self):
+        return self.storage.n_tables
+
+    def _consume_filtered(self, parser_or_filename, chunk, num_bands=None,
+                          band=None, mask=None, threshold=0,
+                          consume_masked=False):
+        """khmer_tpu's QF consume with its filters (hashtable.py:
+        1906-1933): per chunk, K8 lanes cross to the host, where the band
+        and the mask (read with its own get_batch, so any table type, with
+        a loaded bigcount map) zero the weights of the lanes they drop."""
+        if isinstance(parser_or_filename, str):
+            open(parser_or_filename, "rb").close()
+        bmin = bmax = None
+        if num_bands is not None:
+            bmin, bmax = compute_band_interval(num_bands, band)
+        stats = _StreamStats()
+        n_consumed = 0
+        for codes, m in self._chunks(parser_or_filename, chunk, stats):
+            h, w = self._chunk_lanes(codes, m)
+            hashes = _u64.to_numpy(h)
+            w = w.cpu().numpy().astype(np.uint64)
+            if bmin is not None:
+                w = w * ((hashes >= bmin) & (hashes < bmax))
+            if mask is not None:
+                mc = np.asarray(mask.storage.get_batch(hashes))
+                w = w * (mc >= threshold if consume_masked
+                         else mc <= threshold)
+            n_consumed += int(w.sum())
+            self.storage.add_batch_fast(hashes, w)
+        if isinstance(parser_or_filename, str) and not stats.n_reads:
+            raise OSError("{} does not contain any sequences!".format(
+                parser_or_filename))
+        return stats.n_reads, n_consumed
+
+    def _hash_rows(self, sequences):
+        """Per-sequence uint64 hash arrays of a batch of sequences, from
+        one K8 call over the rows padded as khmer_tpu pads them."""
+        if not sequences:
+            return []
+        codes, lengths = _pad_rows(sequences, self._ksize,
+                                   encode=self._encode)
+        h, _ = kernels.murmur_hashes(self._upload(codes),
+                                     self._upload(lengths), self._ksize)
+        h = _u64.to_numpy(h)
+        return [h[i, :max(len(s) - self._ksize + 1, 0)]
+                for i, s in enumerate(sequences)]
+
+    def _hash_count_rows(self, sequences):
+        rows = self._hash_rows(sequences)
+        if not rows:
+            return []
+        counts = self.storage.get_batch(np.concatenate(rows))
+        out = []
+        off = 0
+        for r in rows:
+            out.append((r, counts[off: off + r.shape[0]]))
+            off += r.shape[0]
+        return out
+
+    def count_rows(self, sequences):
+        return [c for _, c in self._hash_count_rows(sequences)]
+
+    def median_at_least_batch(self, sequences, cutoff):
+        out = np.zeros(len(sequences), bool)
+        for i, (_, counts) in enumerate(self._hash_count_rows(sequences)):
+            n = counts.size
+            if n:
+                out[i] = (counts >= cutoff).sum() >= int(0.5 + n / 2.0)
+        return out
+
+    def _chain_batch(self, seq_pairs, chain):
+        """The streaming filters' batch step over the filter's keys: K8
+        hashes the bundles' rows (_bundle_hashes), the windows get ids
+        among the batch's distinct keys, `chain` (K6 or K7) takes the
+        decisions from each key's count before the batch (read from the
+        filter, narrowed to uint16) plus its tally, and the tally goes
+        into the filter.  A
+        read's count is then what the reference's loop reads, except where
+        a key's narrowed count plus its windows in the batch pass 65535,
+        so that the narrowed count wraps within the batch: such a batch is
+        taken as two halves, and a single bundle never wraps (its own adds
+        come after its decision)."""
+        st = self.storage
+        h, valid, real = self._bundle_hashes(seq_pairs)
+        # the filter's keys: its range is a power of two
+        ids, keys = _batch_ids(h & _u64.i64(int(st.range) - 1), valid)
+        del h
+        keys = _u64.to_numpy(keys)
+        pre = st.lookup_keys(keys) & np.uint64(0xFFFF)
+        windows = torch.bincount(ids[valid].to(torch.int64),
+                                 minlength=keys.size).cpu().numpy()
+        if len(seq_pairs) > 1 and \
+                (pre.astype(np.int64) + windows > 0xFFFF).any():
+            half = len(seq_pairs) // 2
+            a = self._chain_batch(seq_pairs[:half], chain)
+            b = self._chain_batch(seq_pairs[half:], chain)
+            return tuple(torch.cat([x[:half * (x.numel() // a[0].numel())],
+                                    y]) for x, y in zip(a, b))
+        out = chain(ids, valid.to(torch.uint8), real,
+                    torch.from_numpy(pre.astype(np.uint16)).to(self.device))
+        tally = out[-1].cpu().numpy().view(np.uint32)
+        live = tally != 0
+        st.add_keys(keys[live], tally[live].astype(np.uint64))
+        return out[:-2]
+
+    def abundance_distribution(self, parser_or_filename, tracking=None):
+        """Histogram of k-mer abundances with exact dedup
+        (khmer_tpu/hashtable.py:1963-1995): the filter's exact counts
+        need no tracking filter."""
+        dist = np.zeros(MAX_BIGCOUNT + 1, np.uint64)
+        seen = set()
+        batch = []
+
+        def drain():
+            for hashes, counts in self._hash_count_rows(batch):
+                for h, c in zip(hashes, counts):
+                    h = int(h)
+                    if h not in seen:
+                        seen.add(h)
+                        dist[int(c)] += 1
+            batch.clear()
+
+        reads = FastxReader(parser_or_filename) \
+            if isinstance(parser_or_filename, str) else parser_or_filename
+        for read in reads:
+            seq = read.cleaned_seq if hasattr(read, "cleaned_seq") \
+                else str(read)
+            if len(seq) >= self._ksize:
+                batch.append(seq)
+                if len(batch) >= 512:
+                    drain()
+        drain()
+        return [int(x) for x in dist]
+
+    abundance_distribution_with_reads_parser = abundance_distribution
+
+    def get_raw_tables(self):
+        # the reference's QFStorage::get_raw_tables returns nullptr
+        raise ValueError("get_raw_tables is not supported for QF tables")
+
+    def _post_load(self):
+        self.slot_size = None
+
+
+class OnDiskQFCounttable(QFCounttable):
+    """Disk-backed quotient-filter counttable, the fork's onDiskMQF
+    (reference third-party/MQF/onDiskMQF.h): khmer_tpu/hashtable.py:
+    2012-2024.  The sorted (key, count) arrays spill to memmap files in
+    `directory`, so the filter can exceed RAM; saves and loads use the
+    raw MQF dump of QFCounttable."""
+
+    def __init__(self, k, size, slot_size=None, directory=None,
+                 device=None):
+        if directory is None:
+            raise ValueError("OnDiskQFCounttable requires a directory")
+        super().__init__(k, size, slot_size, on_disk=directory,
+                         device=device)
+
+
+class BufferedQFCounttable(QFCounttable):
+    """The fork's buffered MQF (reference third-party/MQF/bufferedMQF.h:
+    35-45): khmer_tpu/hashtable.py:2027-2070.  `addToBufferQuery`
+    collects read sequences, `queryBuffer` resolves every buffered k-mer's
+    count in one batch (one K8 call), and per-read queries are served
+    from that cache until `clearQueryBuffer`."""
+
+    def __init__(self, k, size, slot_size=None, device=None):
+        super().__init__(k, size, slot_size, device=device)
+        self._query_buffer = []
+        self._query_cache = {}
+
+    def addToBufferQuery(self, sequence):
+        self._query_buffer.append(sequence)
+
+    def queryBuffer(self):
+        seqs = [s for s in self._query_buffer if len(s) >= self._ksize]
+        if not seqs:
+            return
+        flat = np.concatenate(self._hash_rows(seqs))
+        counts = self.storage.get_batch(flat)
+        self._query_cache.update(
+            (int(h), int(c)) for h, c in zip(flat, counts))
+
+    def clearQueryBuffer(self):
+        self._query_buffer = []
+        self._query_cache = {}
+
+    def get_kmer_counts(self, sequence):
+        cache = self._query_cache
+        if cache:
+            hashes = self._hash_array(sequence)
+            if all(int(h) in cache for h in hashes):
+                return [cache[int(h)] for h in hashes]
+        return super().get_kmer_counts(sequence)
+
+    def get_median_count(self, sequence):
+        counts = np.asarray(self.get_kmer_counts(sequence), np.float64)
+        if counts.size == 0:
+            raise ValueError("no k-mer counts for this string; too short?")
+        return _median_avg_std(counts)

@@ -1,8 +1,8 @@
 """OXLI binary table files -- byte-exact save/load.
 
 Port of khmer_tpu/io/oxli_format.py:109-283 for the byte (Countgraph),
-nibble (SmallCountgraph) and bit (Nodegraph) kinds.  All integers
-little-endian:
+nibble (SmallCountgraph), bit (Nodegraph) and quotient-filter
+(QFCounttable) kinds.  All integers little-endian:
 
 Countgraph (SAVED_COUNTING_HT=1):
   "OXLI" | u8 version=4 | u8 type | u8 use_bigcount | u32 ksize |
@@ -17,6 +17,10 @@ SmallCountgraph (SAVED_SMALLCOUNT=7): the Nodegraph header (no bigcount
 byte, no bigcount section); per table: u64 size + (size//2+1) bytes,
 two 4-bit counts a byte, the even bin in the high nibble, and a
 trailing pad nibble
+
+QFCounttable (SAVED_QFCOUNT=8): "OXLI" | u8 version=4 | u8 type | u8
+ksize | the reference's raw MQF dump, 192 bytes of qfmetadata and its
+RSQF blocks (io/mqf_format.py; QFStorage::save, storage.cc:919-936)
 
 Tagset / stoptags (SAVED_TAGS=3 / SAVED_STOPTAGS=4; khmer_tpu/io/
 oxli_format.py:285-318):
@@ -44,6 +48,7 @@ SAVED_STOPTAGS = 4
 SAVED_SUBSET = 5
 SAVED_LABELSET = 6
 SAVED_SMALLCOUNT = 7
+SAVED_QFCOUNT = 8
 
 FILETYPES = {
     "COUNTING_HT": SAVED_COUNTING_HT,
@@ -53,7 +58,7 @@ FILETYPES = {
     "SUBSET": SAVED_SUBSET,
     "LABELSET": SAVED_LABELSET,
     "SMALLCOUNT": SAVED_SMALLCOUNT,
-    "QFCOUNT": 8,
+    "QFCOUNT": SAVED_QFCOUNT,
 }
 
 _KINDS = {SAVED_COUNTING_HT: "byte", SAVED_HASHBITS: "bit",
@@ -93,8 +98,18 @@ def _read_exact(f, n, filename):
 
 
 def save_storage(filename, ksize, storage):
-    """Save a Byte/Nibble/Bit storage in OXLI format."""
+    """Save a Byte/Nibble/Bit/QF storage in OXLI format."""
     kind = storage.kind
+    if kind == "qf":
+        from khmer_tpu_torch.io.mqf_format import write_qf_dump
+
+        keys, counts = storage.state_arrays()
+        with _open_out(filename) as f:
+            f.write(SAVED_SIGNATURE)
+            f.write(struct.pack("BB", SAVED_FORMAT_VERSION, SAVED_QFCOUNT))
+            write_qf_dump(f, int(ksize), keys, counts, storage.nslots,
+                          storage.rem_bits)
+        return
     raw = storage.raw_bytes()
     sizes = storage.spec.tablesizes
     bpt = storage.spec.bytes_per_table
@@ -111,7 +126,7 @@ def save_storage(filename, ksize, storage):
         off = 0
         for size, nbytes in zip(sizes, bpt):
             f.write(struct.pack("<Q", size))
-            f.write(raw[off: off + nbytes].tobytes())
+            f.write(raw[off: off + nbytes])  # no copy (tobytes would make one)
             off += nbytes
         if kind == "byte":
             bc = storage.resolved_bigcounts()
@@ -125,13 +140,52 @@ def save_storage(filename, ksize, storage):
 def load_storage(filename, expected_kinds=("byte", "bit", "nibble"),
                  device=None):
     """Load an OXLI table file of one of the expected kinds ('byte',
-    'nibble' or 'bit'); returns (storage, ksize)."""
+    'nibble', 'bit' or 'qf'); returns (storage, ksize)."""
     try:
         return _load_storage(filename, expected_kinds, device)
     except EOFError as err:
         # a truncated gzip stream must fail like any truncated file
         raise OSError("truncated compressed file {!r}: {}".format(
             filename, err))
+
+
+def _load_qf(f, filename, device):
+    """The QF section of a SAVED_QFCOUNT file after its type byte
+    (khmer_tpu/io/oxli_format.py:187-240): the reference's raw MQF dump,
+    or khmer_tpu's round-1 payload (u64 nslots, u64 n, n keys, n counts);
+    a payload after the dump's blocks (a layered MQF, which the fork
+    cannot serialise) is refused."""
+    from khmer_tpu_torch.io.mqf_format import (MQFFormatError,
+                                               decode_blocks, parse_metadata)
+    from khmer_tpu_torch.storage import QFStorage
+
+    (ksize,) = struct.unpack("B", _read_exact(f, 1, filename))
+    blob = f.read(192)
+    if len(blob) < 16:
+        raise OxliFileError("Truncated QF section in {}".format(filename))
+    try:
+        meta = parse_metadata(blob)
+    except MQFFormatError:
+        nslots, n_entries = struct.unpack("<QQ", blob[:16])
+        rest = blob[16:] + f.read()
+        keys = np.frombuffer(rest[: 8 * n_entries], np.uint64)
+        counts = np.frombuffer(rest[8 * n_entries: 16 * n_entries],
+                               np.uint64)
+        store = QFStorage(nslots, device=device)
+        store.set_state_arrays(keys.copy(), counts.copy())
+        return store, ksize
+    region = _read_exact(f, meta["size"], filename)
+    keys, counts = decode_blocks(meta, region)
+    if f.read(1):
+        raise OxliFileError(
+            "unexpected trailing payload after the QF block region in {} "
+            "-- layered/multi-level MQF dumps are not supported (see "
+            "docs/PARITY.md, LayeredMQF decision record)".format(filename))
+    slot = meta["key_remainder_bits"]
+    store = QFStorage(meta["nslots"], None if slot == 8 else slot,
+                      device=device)
+    store.set_state_arrays(keys, counts)
+    return store, ksize
 
 
 def _load_storage(filename, expected_kinds, device):
@@ -150,11 +204,13 @@ def _load_storage(filename, expected_kinds, device):
                 "Incorrect file format version {} while reading k-mer file "
                 "from {}; should be {}".format(version, filename,
                                                SAVED_FORMAT_VERSION))
-        kind = _KINDS.get(ht_type)
+        kind = "qf" if ht_type == SAVED_QFCOUNT else _KINDS.get(ht_type)
         if kind not in expected_kinds:
             raise OxliFileError(
                 "Incorrect file format type {} while reading k-mer file "
                 "from {}".format(ht_type, filename))
+        if kind == "qf":
+            return _load_qf(f, filename, device)
         use_bigcount = 0
         if kind == "byte":
             (use_bigcount,) = struct.unpack(

@@ -24,7 +24,8 @@ from khmer_tpu_torch.kernels import _build, plain
 KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
            "trim_chain", "murmur_hashes", "hll_update", "cc_rounds",
-           "cyclic_hashes", "band_mask_weights")
+           "cyclic_hashes", "band_mask_weights", "count_nonzero",
+           "pack_oxli_bytes")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # row_counts' launches by hash kind (its 2-bit, murmur and cyclic variants)
 ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0, "cyclic": 0}
@@ -535,3 +536,58 @@ def cc_rounds(labels, src, dst, rounds=8):
             T, E, rounds, out.data_ptr(), scratch.data_ptr(),
             changed.data_ptr(), count=CC_KERNELS_PER_ROUND * rounds)
     return out, changed[0] != 0
+
+
+def count_nonzero(table, begin, end):
+    """K13: the number of nonzero bins of table[begin:end] (int32 bit
+    patterns of u32 bins) as an int64 [1] tensor on the table's device,
+    without synchronising; see csrc/save.cu."""
+    dev = table.device
+    _check("table", table, torch.int32, dev)
+    if not 0 <= begin <= end <= table.numel():
+        raise ValueError("count_nonzero: need 0 <= begin <= end <= "
+                         "{}".format(table.numel()))
+    if dev.type != "cuda":
+        return plain.count_nonzero(table, begin, end)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    if end > begin:
+        _launch("count_nonzero", table.data_ptr(), begin, end,
+                total.data_ptr())
+    return total
+
+
+PACK_KINDS = ("byte", "nibble", "bit")  # csrc/save.cu kKindByte, ...
+
+
+def pack_oxli_bytes(table, kind, sizes, offsets, bytes_per_table):
+    """K14: the OXLI byte stream of every table of a sketch ('byte':
+    min(bin, 255); 'nibble': two bins a byte, the even one high, capped at
+    15, with a pad nibble; 'bit': eight bins a byte, least significant
+    first), uint8 [sum(bytes_per_table)] on the table's device; sizes
+    and offsets as the geometry's int64 [T] tensors, bytes_per_table the
+    stream bytes of each table (SketchSpec.bytes_per_table).  Bins compare
+    unsigned, so bins >= 2**31 saturate.  See csrc/save.cu."""
+    dev = table.device
+    _check("table", table, torch.int32, dev)
+    _check("sizes", sizes, torch.int64, dev)
+    _check("offsets", offsets, torch.int64, dev)
+    if kind not in PACK_KINDS:
+        raise ValueError("pack_oxli_bytes: unknown kind {!r}".format(kind))
+    T = sizes.numel()
+    if not 0 < T <= MAX_TABLES or offsets.numel() != T or \
+            len(bytes_per_table) != T:
+        raise ValueError("pack_oxli_bytes: need 1..{} tables with one "
+                         "offset and one byte count each".format(MAX_TABLES))
+    if dev.type != "cuda":
+        return plain.pack_oxli_bytes(table, kind, sizes, offsets,
+                                     bytes_per_table)
+    starts = [0]
+    for nb in bytes_per_table[:-1]:
+        starts.append(starts[-1] + int(nb))
+    n_out = starts[-1] + int(bytes_per_table[-1])
+    out_offs = torch.tensor(starts, dtype=torch.int64, device=dev)
+    out = torch.empty(n_out, dtype=torch.uint8, device=dev)
+    _launch("pack_oxli_bytes", table.data_ptr(), PACK_KINDS.index(kind), T,
+            sizes.data_ptr(), offsets.data_ptr(), out_offs.data_ptr(), n_out,
+            out.data_ptr())
+    return out

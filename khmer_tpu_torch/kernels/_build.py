@@ -19,7 +19,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("hash2bit", "sketch", "abund", "rows", "chain", "murmur", "hll",
-           "cc", "cyclic", "filter")
+           "cc", "cyclic", "filter", "save")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,6 +46,8 @@ SIGNATURES = {
     "khmer_cc_rounds": (_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P),
     "khmer_band_mask_weights": (_P, _P, _LL, _I, _ULL, _ULL, _P, _I, _P, _P,
                                 _P, _U, _U, _I, _P, _P, _P),
+    "khmer_count_nonzero": (_P, _LL, _LL, _P, _P),
+    "khmer_pack_oxli_bytes": (_P, _I, _I, _P, _P, _P, _LL, _P, _P),
     "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P, _LL,
                              _P),
     "khmer_trim_chain": (_P, _P, _P, _P, _I, _I, _U, _U, _I, _U, _P, _P, _P,

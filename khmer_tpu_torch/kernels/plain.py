@@ -380,3 +380,33 @@ def cc_rounds(labels, src, dst, rounds):
         changed |= (m2 != lab).any()
         lab = m2
     return lab.to(torch.int32), changed
+
+
+def count_nonzero(table, begin, end):
+    """The nonzero bins of table[begin:end], an int64 [1] tensor."""
+    return (table[begin:end] != 0).sum().reshape(1)
+
+
+def pack_oxli_bytes(table, kind, sizes, offsets, bytes_per_table):
+    """The OXLI byte stream of every table (csrc/save.cu), uint8 on the
+    table's device."""
+    cap = {"byte": MAX_KCOUNT, "nibble": 15, "bit": 1}[kind]
+    dev = table.device
+    outs = []
+    for size, off, nb in zip(sizes.tolist(), offsets.tolist(),
+                             bytes_per_table):
+        t = _u64.u32(table[off: off + size]).clamp(max=cap)
+        if kind == "byte":
+            outs.append(t.to(torch.uint8))
+            continue
+        per = 2 if kind == "nibble" else 8
+        padded = torch.zeros(nb * per, dtype=torch.int64, device=dev)
+        padded[:size] = t
+        padded = padded.view(nb, per)
+        if kind == "nibble":
+            # even bin -> high nibble, odd -> low (storage.hh:268-276)
+            outs.append(((padded[:, 0] << 4) | padded[:, 1]).to(torch.uint8))
+        else:
+            shifts = torch.arange(8, dtype=torch.int64, device=dev)
+            outs.append((padded << shifts).sum(1).to(torch.uint8))
+    return torch.cat(outs)

@@ -496,10 +496,59 @@ def create_counttable(args, ksize=None, multiplier=1.0, fp_rate=0.1,
     return tableclass(ksize, tablesize, args.n_tables, device=device)
 
 
-def not_ported(feature, where):
-    """Exit with the error for a khmer_tpu feature the port lacks yet."""
-    print_error("\n** ERROR: {} is not ported to khmer_tpu_torch yet "
-                "({} of the port).".format(feature, where))
+def create_MQFGraph(args, ksize=None, multiplier=1.0, fp_rate=0.1,
+                    device=None):
+    """A QFCounttable (--mqf) or BufferedQFCounttable (--bmqf) sized from
+    -U and --fp-rate (khmer_tpu/khmer_args.py:518-577, the sizing of the
+    reference's khmer/khmer_args.py:548-598).  The filter is host-exact,
+    as khmer_tpu's is: a sorted (key, count) dictionary, whose tables
+    hash their reads on `device` (docs/PARITY.md N4/N5)."""
+    del multiplier
+    if ksize is None:
+        ksize = args.ksize
+    if ksize > 31:
+        print_error("\n** ERROR: khmer only supports k-mer sizes <= 32.\n")
+        sys.exit(1)
+    if not args.unique_kmers:
+        print_error("\n** ERROR: please supply unique  number of kmers.\n")
+        sys.exit(1)
+
+    size = int(math.ceil(math.log2(1.3 * args.unique_kmers)))
+
+    if args.fp_rate:
+        log_info("*** INFO: Overriding default fp {def_fp} with new fp:"
+                 " {new_fp}", def_fp=fp_rate, new_fp=args.fp_rate)
+        fp_rate = args.fp_rate
+
+    p = int(math.ceil(math.log2(float(args.unique_kmers) / float(fp_rate))))
+    p = min(p, ksize * 2)
+    slot_size = p - size
+
+    if slot_size < 2:
+        print_error("\n** ERROR: too small slot size.\n")
+        sys.exit(1)
+
+    nslots = 2 ** size
+    nslots += 10 * math.sqrt(nslots)
+    nblocks = int((nslots + 63) / 64)
+    block_size = 17
+    bits_per_slot = slot_size + 2
+    total_size = nblocks * (block_size + bits_per_slot * 8)
+    total_size /= (1000.0 ** 3)
+
+    if getattr(args, 'mqf', False):
+        log_info("*** INFO: creating MQF of size {size} and slot "
+                 "{slotsize}. Total Size ={totalSize}G",
+                 size=size, slotsize=slot_size, totalSize=total_size)
+        return khmer.QFCounttable(ksize, 2 ** size, slot_size,
+                                  device=device)
+    if getattr(args, 'bmqf', False):
+        log_info("*** INFO: creating Buffered MQF of size {size} and slot "
+                 "{slotsize}. Total Size ={totalSize}G",
+                 size=size, slotsize=slot_size, totalSize=total_size)
+        return khmer.BufferedQFCounttable(ksize, 2 ** size, slot_size,
+                                          device=device)
+    print_error("\n** ERROR: Unknown mqf type.\n")
     sys.exit(1)
 
 

@@ -11,11 +11,14 @@ reference (ByteStorage::add, reference include/oxli/storage.hh:575-628;
 NibbleStorage::add, storage.hh:324-363; BitStorage::test_and_set_bits,
 storage.hh:176-203).
 
-The device work is kernels K2 (sketch_update) and K3 (sketch_get); the
-save layout (one byte a bin; two bins a byte for nibble, eight for bit)
-is packed on the device for byte and nibble and on the host for bit,
-with a host numpy mirror of khmer_tpu's (:290-360), and a load widens
-the raw bytes on the device through bin_scatter_add.
+The device work is kernels K2 (sketch_update) and K3 (sketch_get).  A
+save packs the OXLI stream (one byte a bin; two bins a byte for nibble,
+eight for bit) on the device with K14 (pack_oxli_bytes), so only the
+stream crosses to the host; its bytes equal both of khmer_tpu's routes
+(the dense pack and the sparse fetch of storage.py:300-313).  K13
+(count_nonzero) counts occupied bins.  A load widens the raw bytes on
+the device through bin_scatter_add; host_pack_oxli_bytes is the host
+numpy mirror of khmer_tpu's (:290-312).
 """
 
 from dataclasses import dataclass
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from khmer_tpu_torch import _u64, kernels
-from khmer_tpu_torch._config import BIN_DTYPE, MAX_KCOUNT
+from khmer_tpu_torch._config import BIN_DTYPE
 
 BIGCOUNT_CAP = 65535
 NIBBLE_CAP = 15  # the nibble kind's read cap (reference storage.hh:258)
@@ -122,8 +125,8 @@ def sketch_get(geom, table, hashes, cap):
 
 
 def occupied_bins(spec, table):
-    """n_occupied: nonzero bins of table 0 (exact)."""
-    return int((table[: spec.tablesizes[0]] != 0).sum())
+    """n_occupied: nonzero bins of table 0 (exact; K13)."""
+    return int(kernels.count_nonzero(table, 0, spec.tablesizes[0]).item())
 
 
 # ---------------------------------------------------------------------------
@@ -131,34 +134,13 @@ def occupied_bins(spec, table):
 # ---------------------------------------------------------------------------
 
 
-def _saturated(t, cap):
-    """u32 bins (int32 bit patterns) capped at cap: bins >= 2**31 are
-    negative patterns, saturated too."""
-    return torch.where((t < 0) | (t > cap), cap, t)
-
-
 def pack_oxli_bytes(spec, table):
-    """Working table -> OXLI on-disk byte stream (host numpy).  The
-    per-bin cap, and for the nibble kind the packing of two bins a byte,
-    run on the table's device, so only the stream's bytes (one a bin,
-    one per two bins for nibble) cross to the host."""
-    t = table[: spec.total_bins]
-    if spec.kind == "byte":
-        return _saturated(t, MAX_KCOUNT).to(torch.uint8).cpu().numpy()
-    if spec.kind == "nibble":
-        vals = _saturated(t, NIBBLE_CAP).to(torch.uint8)
-        outs = []
-        for size, off, nb in zip(spec.tablesizes, spec.bin_offsets,
-                                 spec.bytes_per_table):
-            pair = torch.zeros(2 * nb, dtype=torch.uint8, device=t.device)
-            pair[:size] = vals[off: off + size]
-            pair = pair.view(nb, 2)
-            # even bin -> high nibble, odd -> low (storage.hh:268-276),
-            # and a trailing pad nibble
-            outs.append((pair[:, 0] << 4) | pair[:, 1])
-        return torch.cat(outs).cpu().numpy()
-    full = (t != 0).to(torch.uint8).cpu().numpy()
-    return host_pack_oxli_bytes(spec, full)
+    """Working table -> OXLI on-disk byte stream (host numpy), packed on
+    the table's device by K14, so only the stream's bytes cross to the
+    host."""
+    sizes, offsets, _ = spec.geometry(table.device)
+    return kernels.pack_oxli_bytes(table, spec.kind, sizes, offsets,
+                                   spec.bytes_per_table).cpu().numpy()
 
 
 def host_pack_oxli_bytes(spec, table):

@@ -15,7 +15,10 @@ output bytes.  Each batch of `batch` read bundles is one
 Countgraph.diginorm_batch call on `device` (kernels K1, K3, K6 and K2);
 the keep flags of a batch are read back while the next batch is parsed.
 A table that counts past 255 (a loaded .ct with bigcount) takes the
-host replay, _drain_host, as khmer_tpu does.  Run as
+host replay, _drain_host, as khmer_tpu does.  --mqf and --bmqf count in
+khmer_tpu's host-exact quotient filter (create_MQFGraph, sized from -U);
+its batch step hashes with K8 and decides with K6 over the filter's
+keys, which gives the reference's read-by-read result.  Run as
 ``python -m khmer_tpu_torch.scripts.normalize_by_median``.
 """
 
@@ -321,7 +324,7 @@ def main(argv=None, device=None, batch=BATCH):
                  graph=args.loadgraph)
         countgraph = Countgraph.load(args.loadgraph, device=device)
     elif args.mqf or args.bmqf:
-        khmer_args.not_ported("--mqf/--bmqf (MQF tables)", "slice 5")
+        countgraph = khmer_args.create_MQFGraph(args, device=device)
     else:
         log_info('making countgraph')
         countgraph = khmer_args.create_counttable(args, device=device)

@@ -13,8 +13,11 @@ Output sequences will be placed in 'infile.abundtrim'.
 PyTorch/CUDA port of scripts/trim-low-abund.py: the same flags, two-pass
 streaming semantics and output bytes.  Pass 1 is one
 Countgraph.trim_pass1_batch call per batch of `batch` read bundles on
-`device` (kernels K1, K3, K7 and K2); pass 2 reads counts with K5.  Run
-as ``python -m khmer_tpu_torch.scripts.trim_low_abund``.
+`device` (kernels K1, K3, K7 and K2); pass 2 reads counts with K5.  With
+--mqf the counts live in khmer_tpu's host-exact quotient filter
+(create_MQFGraph, sized from -U): K8 hashes, K7 decides over the
+filter's keys, and pass 2 reads the filter.  Run as
+``python -m khmer_tpu_torch.scripts.trim_low_abund``.
 """
 
 import csv
@@ -323,7 +326,8 @@ def main(argv=None, device=None, batch=BATCH):
         table_class = SmallCountgraph if args.small_count else Countgraph
         ct = table_class.load(args.loadgraph, device=device)
     elif args.mqf:
-        khmer_args.not_ported("--mqf (MQF tables)", "slice 5")
+        log_info('making MQF')
+        ct = khmer_args.create_MQFGraph(args, device=device)
     else:
         log_info('making countgraph')
         ct = khmer_args.create_counttable(args, device=device)

@@ -14,11 +14,18 @@ host-side set of candidate hashes whose table-0 bin crossed 255; a
 bigcount map loaded *from* a file overlays saturated reads exactly as
 the reference does (storage.hh:631-653).
 
+QFStorage (the counting quotient filter) is khmer_tpu's host-exact
+sorted (key, count) dictionary, copied as it is: its tables hash on the
+device, and the filter lives on the host.
+
 Every write to a table goes through its Storage and counts in
 `Storage.writes`, which keeps the host count snapshot (host_counts)
 coherent: the port writes tables in place, so the snapshot cannot tell a
 new table by its identity, as khmer_tpu's does.
 """
+
+import math
+import os
 
 import numpy as np
 import torch
@@ -248,7 +255,11 @@ class Storage:
     # -- host access ------------------------------------------------------
 
     def raw_bytes(self):
-        """All table bytes in OXLI on-disk layout, host numpy."""
+        """All table bytes in OXLI on-disk layout, host numpy, packed on
+        the device (K14).  khmer_tpu (storage.py:300-313) fetches a
+        sparse table's nonzero (bin, value) pairs instead, for a slow
+        link; the bytes are the same, and over this card's PCIe the
+        dense stream saves faster (PERF.md)."""
         return pack_oxli_bytes(self.spec, self.table)
 
     def replace_table(self, bins):
@@ -311,3 +322,230 @@ class NibbleStorage(Storage):
 # storage class of each kind
 BY_KIND = {cls.kind: cls for cls in (ByteStorage, NibbleStorage,
                                      BitStorage)}
+
+
+class QFStorage:
+    """Counting-quotient-filter storage with the reference's counting
+    semantics (storage.hh:417-462 over third-party/cqf/gqf.c): a copy of
+    khmer_tpu/storage.py:355-574.
+
+    The CQF stores the full key (quotient + remainder), so it behaves as
+    an EXACT multiset over the key space `khash % range`, range = nslots
+    * 2**bits_per_slot (qf_init, gqf.c:1367-1398; 8 remainder bits for
+    khmer's key_bits = q + 8).  The slot-shifting insert is inherently
+    sequential, so the filter is a sorted (key, count) dictionary on the
+    host: batches are deduplicated with a sort and segment sum and merged
+    into the sorted arrays, and queries are a binary search.  Counts are
+    exact for every key, bit-identical to qf_count_key_value, and reads
+    narrow them to uint16 as the reference's BoundedCounterType return
+    does.  `device` is where its tables' hashes and device reads live."""
+
+    kind = "qf"
+    supports_bigcount = False
+    MIN_FLUSH = 1 << 18
+
+    def __init__(self, size, slot_size=None, on_disk=None, device=None):
+        size = int(size)
+        if size <= 0 or size & (size - 1):
+            raise ValueError("QF size must be a power of two")
+        self.device = resolve_device(device)
+        self.nslots = size
+        # onDiskMQF analogue (third-party/MQF/onDiskMQF.h): with a spill
+        # directory, the sorted arrays live in disk-backed memmaps
+        self.on_disk = on_disk
+        self._gen = 0
+        # key space per qf_init: range = nslots << key_remainder_bits; the
+        # classic CQF constructor uses key_bits = q + 8 (storage.hh:428),
+        # the fork's MQF constructor the slot size it is given
+        self.rem_bits = int(slot_size) if slot_size else 8
+        self.range = np.uint64(size) << np.uint64(self.rem_bits)
+        # xnslots = nslots + 10 * sqrt(nslots) (gqf.c:1372)
+        self.xnslots = size + int(10 * math.sqrt(size))
+        self.slot_size = slot_size
+        self._keys = np.zeros(0, np.uint64)
+        self._counts = np.zeros(0, np.uint64)
+        self._pending = []
+        self._pending_n = 0
+
+    # -- geometry ---------------------------------------------------------
+
+    def get_tablesizes(self):
+        # the reference's get_tablesizes returns {xnslots}
+        return [self.xnslots]
+
+    @property
+    def n_tables(self):
+        return 1
+
+    def n_occupied(self):
+        # the reference's noccupied_slots, by its dominant term: one slot
+        # a distinct key
+        self._flush()
+        return int(self._keys.shape[0])
+
+    def n_unique_kmers(self):
+        # the reference's ndistinct_elts, exact here
+        self._flush()
+        return int(self._keys.shape[0])
+
+    def set_use_bigcount(self, b):
+        if b:
+            raise ValueError("bigcount is not supported for this storage "
+                             "type")
+
+    def get_use_bigcount(self):
+        return False
+
+    # -- update/query -----------------------------------------------------
+
+    @staticmethod
+    def _reduce(keys, weights):
+        """Sort and segment-sum a raw (keys, weights) batch."""
+        order = np.argsort(keys, kind="stable")
+        keys = keys[order]
+        weights = weights[order]
+        uniq, first = np.unique(keys, return_index=True)
+        sums = np.add.reduceat(weights, first) if keys.size else weights
+        return uniq, sums.astype(np.uint64)
+
+    def _flush(self):
+        if not self._pending:
+            return
+        keys = np.concatenate([k for k, _ in self._pending])
+        ws = np.concatenate([w for _, w in self._pending])
+        self._pending = []
+        self._pending_n = 0
+        uk, us = self._reduce(keys, ws)
+        if self._keys.shape[0] == 0:
+            self._adopt(uk, us)
+            return
+        self._adopt(*self._reduce(np.concatenate([self._keys, uk]),
+                                  np.concatenate([self._counts, us])))
+
+    def _adopt(self, keys, counts):
+        """Adopt merged sorted arrays; in on-disk mode they spill to
+        alternating-generation memmap files, so the resident set stays
+        page-cache-managed (the stxxl / onDiskMQF role)."""
+        if self.on_disk is None:
+            self._keys, self._counts = keys, counts
+            return
+        os.makedirs(self.on_disk, exist_ok=True)
+        self._gen ^= 1
+        n = keys.shape[0]
+        kp = os.path.join(self.on_disk, "qf_keys.%d.bin" % self._gen)
+        cp = os.path.join(self.on_disk, "qf_counts.%d.bin" % self._gen)
+        mk = np.memmap(kp, np.uint64, "w+", shape=(max(n, 1),))
+        mc = np.memmap(cp, np.uint64, "w+", shape=(max(n, 1),))
+        mk[:n] = keys
+        mc[:n] = counts
+        mk.flush()
+        mc.flush()
+        self._keys = np.memmap(kp, np.uint64, "r", shape=(n,))
+        self._counts = np.memmap(cp, np.uint64, "r", shape=(n,))
+
+    def lookup_keys(self, keys):
+        """Exact uint64 counts of already-reduced keys (numpy)."""
+        self._flush()
+        if self._keys.shape[0] == 0:
+            return np.zeros(keys.shape, np.uint64)
+        idx = np.searchsorted(self._keys, keys)
+        idx = np.minimum(idx, self._keys.shape[0] - 1)
+        found = self._keys[idx] == keys
+        return np.where(found, self._counts[idx], np.uint64(0))
+
+    def add_keys(self, keys, weights):
+        """Queue already-reduced uint64 keys with uint64 weights > 0; the
+        queue is merged once it holds half the table's keys."""
+        self._pending.append((keys, weights))
+        self._pending_n += keys.shape[0]
+        if self._pending_n >= max(self.MIN_FLUSH,
+                                  self._keys.shape[0] // 2):
+            self._flush()
+
+    def _live(self, hashes, weights):
+        """(keys, uint64 weights) of the lanes of weight > 0."""
+        keys = np.asarray(hashes, np.uint64).reshape(-1) % self.range
+        if weights is None:
+            return keys, np.ones(keys.shape, np.uint64)
+        weights = np.asarray(weights, np.uint64).reshape(-1)
+        keep = weights > 0
+        if not keep.all():
+            keys, weights = keys[keep], weights[keep]
+        return keys, weights
+
+    def add_batch(self, hashes, weights=None):
+        """Add a batch of uint64 hashes; returns the per-lane was-new
+        flags (the reference's add: get_count() == 0 before the insert),
+        for the lanes of weight > 0."""
+        keys, weights = self._live(hashes, weights)
+        present = self.lookup_keys(keys) > 0
+        # new: absent from the filter and the key's first lane in the batch
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        fmask = np.ones(sk.shape, bool)
+        fmask[1:] = sk[1:] != sk[:-1]
+        first_lane = np.zeros(keys.shape, bool)
+        first_lane[order] = fmask
+        self.add_keys(keys, weights)
+        return (~present) & first_lane
+
+    def add_batch_fast(self, hashes, weights=None):
+        """Bulk add without the was-new flags (the consume path)."""
+        self.add_keys(*self._live(hashes, weights))
+
+    def add_lanes(self, hashes, weights, track_bigcount=True):
+        """add_batch_fast for device lanes (int64 hashes, int32 weights as
+        uint32 bit patterns): they cross to the host."""
+        del track_bigcount
+        self.add_batch_fast(_u64.to_numpy(hashes),
+                            weights.cpu().numpy().view(np.uint32))
+
+    def add(self, khash):
+        return bool(self.add_batch(np.asarray([khash], np.uint64))[0])
+
+    def test_and_set_bits(self, khash):
+        return 1 if self.add(khash) else 0
+
+    def get_batch(self, hashes, with_bigcount=True):
+        """Counts of uint64 hashes, narrowed to uint16 (BoundedCounterType)."""
+        del with_bigcount
+        hashes = np.asarray(hashes, np.uint64).reshape(-1)
+        counts = self.lookup_keys(hashes % self.range)
+        return (counts & np.uint64(0xFFFF)).astype(np.uint16)
+
+    def get_batch_device(self, hashes):
+        """get_batch of host hashes as a uint16 tensor on the device."""
+        return torch.from_numpy(self.get_batch(np.asarray(hashes))).to(
+            self.device)
+
+    def get(self, khash):
+        return int(self.get_batch(np.asarray([khash], np.uint64))[0])
+
+    get_count = get
+
+    def host_counts(self, hashes):
+        return self.get_batch(hashes)
+
+    # -- save/load payload ------------------------------------------------
+
+    def state_arrays(self):
+        self._flush()
+        return self._keys, self._counts
+
+    def set_state_arrays(self, keys, counts):
+        self._keys = np.asarray(keys, np.uint64)
+        self._counts = np.asarray(counts, np.uint64)
+        self._pending = []
+        self._pending_n = 0
+
+
+def storage_for_filetype(ht_type):
+    """The storage class of an OXLI table file type."""
+    from khmer_tpu_torch.io import oxli_format as f
+
+    return {
+        f.SAVED_COUNTING_HT: ByteStorage,
+        f.SAVED_HASHBITS: BitStorage,
+        f.SAVED_SMALLCOUNT: NibbleStorage,
+        f.SAVED_QFCOUNT: QFStorage,
+    }[ht_type]

@@ -1765,3 +1765,87 @@ def test_slice4c_scripts_small_on_card(dev, tmp_path):
                         for f in sorted(os.listdir(str(wd)))})
     assert out[str(dev)] == out["cpu"]
     assert "pairs.fa.corr" in out["cpu"][1] and ">orf" in out["cpu"][0]
+
+
+# -- K13 count_nonzero and K14 pack_oxli_bytes --------------------------------
+
+
+def _bins(rng, n, density, big=False):
+    """n u32 bins (int32 patterns): a share `density` nonzero, values up
+    to 2**32 - 1 with big, else below 300."""
+    vals = rng.integers(1, 2 ** 32 if big else 300, n, dtype=np.uint64)
+    vals[rng.random(n) >= density] = 0
+    return torch.from_numpy(vals.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("begin,end", [(0, 0), (5, 5), (0, 1), (3, 4100),
+                                       (4096, 1000003), (0, (1 << 24) + 6)])
+def test_count_nonzero(dev, begin, end, density):
+    rng = np.random.default_rng(end)
+    table = _bins(rng, (1 << 24) + 6, density, big=True)
+    kernels.reset_launches()
+    got = kernels.count_nonzero(table.to(dev), begin, end)
+    assert got.dtype == torch.int64 and got.shape == (1,)
+    assert int(got) == int(plain.count_nonzero(table, begin, end))
+    assert kernels.LAUNCHES["count_nonzero"] == (1 if end > begin else 0)
+
+
+def test_count_nonzero_one_bin(dev):
+    """One nonzero bin (2**32 - 1) at each tile edge is counted once."""
+    for at in (0, 1, 4095, 4096, 99999):
+        table = torch.zeros(100001, dtype=torch.int32)
+        table[at] = -1  # 2**32 - 1
+        assert int(kernels.count_nonzero(table.to(dev), 0, 100000)) == 1
+
+
+def test_count_nonzero_refuses(dev):
+    t = torch.zeros(10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.count_nonzero(t, 0, 11)
+    with pytest.raises(ValueError):
+        kernels.count_nonzero(t, 4, 3)
+
+
+PACK_SIZES = [(1,), (7,), (8,), (9,), (1009, 1013, 1019), (16,) * 32,
+              ((1 << 24) + 3, 101)]
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["small", "ge2^31"])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("sizes", PACK_SIZES, ids=lambda s: "x".join(
+    map(str, s[:3])) + ("..." if len(s) > 3 else ""))
+@pytest.mark.parametrize("kind", ["byte", "nibble", "bit"])
+def test_pack_oxli_bytes(dev, kind, sizes, density, big):
+    rng = np.random.default_rng(len(sizes) + int(10 * density))
+    spec = SketchSpec(kind, sizes)
+    table = _bins(rng, spec.total_bins + 1, density, big)
+    geom = [g.to(dev) for g in spec.geometry("cpu")[:2]]
+    kernels.reset_launches()
+    got = kernels.pack_oxli_bytes(table.to(dev), kind, *geom,
+                                  spec.bytes_per_table)
+    want = plain.pack_oxli_bytes(table, kind, *spec.geometry("cpu")[:2],
+                                 spec.bytes_per_table)
+    assert got.dtype == torch.uint8 and got.numel() == spec.total_bytes
+    assert torch.equal(got.cpu(), want)
+    assert kernels.LAUNCHES["pack_oxli_bytes"] == 1
+
+
+@pytest.mark.parametrize("kind", ["byte", "nibble", "bit"])
+@pytest.mark.parametrize("density", [1e-4, 0.5])
+def test_raw_bytes_routes_on_card(dev, kind, density):
+    """Storage.raw_bytes on the card equals the CPU's, through K14, with
+    its nonzero bins on each side of khmer_tpu's sparse threshold."""
+    from khmer_tpu_torch.convert import storage_from_numpy
+
+    sizes = (100003, 100019, 100043)
+    rng = np.random.default_rng(int(density * 1e4))
+    bins = _bins(rng, sum(sizes) + 1, density, big=True).numpy()
+    bins[-1] = 0
+    raw = {}
+    for d in ("cpu", dev):
+        st = storage_from_numpy(kind, sizes, bins.view(np.uint32), device=d)
+        kernels.reset_launches()
+        raw[str(d)] = st.raw_bytes()
+    assert np.array_equal(raw["cpu"], raw[str(dev)])
+    assert kernels.LAUNCHES["pack_oxli_bytes"] == 1

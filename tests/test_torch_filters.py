@@ -109,21 +109,17 @@ def test_filters_drop_and_trim(runs):
 @pytest.mark.parametrize("flag", [["--bmqf"], ["--small-count"],
                                   ["--mqf"]])
 def test_unported_tables_exit(tmp_path, capsys, flag):
-    """Tables of later slices exit with an error that names the slice,
-    before any read is parsed (-H murmur, once the first case, is ported
+    """Tables that later slices ported run instead of exiting with an
+    error that names the slice (-H murmur, once the first case, is ported
     and held to khmer_tpu in tests/test_torch_counttable.py).
     --small-count is ported since slice 3b (held to khmer_tpu in
-    tests/test_torch_smallcount.py): it runs and keeps every read here."""
+    tests/test_torch_smallcount.py) and --mqf/--bmqf since slice 5 (held
+    to the reference's loop in tests/test_torch_qf.py; they size the
+    filter from -U, and k <= 31): each runs and keeps every read here."""
     fa = str(tmp_path / "reads.fa")
     write_pairs(fa, n_pairs=4)
-    if flag == ["--small-count"]:
-        normalize_by_median.main(["-q", "-o", str(tmp_path / "o.fa")] +
-                                 flag + [fa], device="cpu")
-        assert "not ported" not in capsys.readouterr().err
-        assert open(tmp_path / "o.fa").read().count(">") == 8
-        return
-    with pytest.raises(SystemExit) as exc:
-        normalize_by_median.main(["-q", "-o", str(tmp_path / "o.fa")] +
-                                 flag + [fa], device="cpu")
-    assert exc.value.code == 1
-    assert "not ported to khmer_tpu_torch yet" in capsys.readouterr().err
+    sizing = [] if flag == ["--small-count"] else ["-k", "20", "-U", "1000"]
+    normalize_by_median.main(["-q", "-o", str(tmp_path / "o.fa")] + sizing +
+                             flag + [fa], device="cpu")
+    assert "not ported" not in capsys.readouterr().err
+    assert open(tmp_path / "o.fa").read().count(">") == 8
