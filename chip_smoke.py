@@ -61,8 +61,10 @@ Phases (any failure exits non-zero; nothing is caught):
      100-bp reads in pairs (0.5% substitutions) at 40x over the first
      1.6 Mbase of the phase-4 genome (configs 2-3's 1,280,000 reads over
      3.2 Mbase, halved for the smoke's time limit), through the port's script entry points.  Held against (a)
-     the same runs through the plain versions on the card (every output
-     file's sha256, reads and bases written, n_unique identical) and
+     normalize-by-median's and count-median's runs through the plain
+     versions on the card (every output file's sha256, reads and bases
+     written, n_unique identical; the other three's plain runs were cut
+     for the time limit) and
      (b) a numpy replay of the first batch's keep decisions from K3
      pre-counts.  K5, K6 and K7 must have been launched by this run; the
      walls, rates, device busy shares and peak device memory are
@@ -215,6 +217,26 @@ Phases (any failure exits non-zero; nothing is caught):
      the load = the distinct keys, sampled counts exact); K8, K6 and K7
      must have been launched; walls, device busy shares and K8 launches
      are printed.
+  13. the sharded consume, query and CC (slice 7a): (a) K15
+     (band_route), K16 (combine_lanes), K17 (claim_scatter and
+     claim_count), K3t (sketch_get_tables) and K10's relax and jump entry
+     points against their plain versions, bit for bit (K16 after a sort
+     by key), on the first 2**23-lane chunk of the phase-4 file and a hot
+     chunk (poly-A on half the lanes, which forces leftovers), the chunk's
+     distinct lanes virgin and against the phase-4 .ct, and phase 7's
+     star; (b) ShardedDeferredConsumer over a data=1, shard=4 mesh on the
+     card, fed by the native loader with the phase-4 file at -k 20 -N 4
+     -x 1e8: its delta equal to a serial consume's table bit for bit, its
+     n_unique to phase 4's .ct, its n_consumed to the serial one, the
+     sharded query of 2**20 hashes to K3 on the serial table, and the
+     same run through the plain versions on the card equal; wall, stage
+     ms, device busy, peak memory, routed bytes and rounds printed; (c)
+     do_partition_device over the 4-shard mesh on phase 7's graph equal to
+     the single-device engine; (d) distributed_count over two processes
+     (this script with --dist-worker) on the first 160,000 phase-5 reads
+     at -N 4 -x 1e7, one file, so that process 1 idles: NCCL where the
+     machine shows two cards or more, else gloo with both on cuda:0
+     (printed), its merged table and n_unique equal to a serial consume.
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -275,6 +297,18 @@ SOURCES = {
                       "khmer_tpu/ops/sketch_ops.py:234"),
     "pack_oxli_bytes": ("khmer_tpu_torch/kernels/csrc/save.cu",
                         "khmer_tpu/ops/sketch_ops.py:246"),
+    "band_route": ("khmer_tpu_torch/kernels/csrc/route.cu",
+                   "khmer_tpu/parallel/sharded.py:143"),
+    "combine_lanes": ("khmer_tpu_torch/kernels/csrc/combine.cu",
+                      "khmer_tpu/ops/deferred.py:297"),
+    "claim_news": ("khmer_tpu_torch/kernels/csrc/claims.cu",
+                   "khmer_tpu/parallel/sharded.py:344"),
+    "sketch_get_tables": ("khmer_tpu_torch/kernels/csrc/sketch.cu",
+                          "khmer_tpu/parallel/sharded.py:103"),
+    "cc_relax": ("khmer_tpu_torch/kernels/csrc/cc.cu",
+                 "khmer_tpu/partition_device.py:80"),
+    "cc_jump": ("khmer_tpu_torch/kernels/csrc/cc.cu",
+                "khmer_tpu/partition_device.py:80"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
@@ -289,6 +323,12 @@ SLICE2_PATH = ("row_counts", "diginorm_chain", "trim_chain",
 SLICE2_READS = 640_000
 SLICE2_COVERAGE = 40
 BATCH = 16384  # bundles per normalize-by-median / trim-low-abund batch
+# the phase-5 scripts run again through the plain versions (cut from all
+# five for the time limit: trim-low-abund's, filter-abund's and
+# filter-abund-single's took about 72 s; K5-K7 stay held to their plain
+# versions in phase 3b, and phase 8 reruns trim-low-abund and
+# filter-abund-single --small-count through the plain versions)
+SLICE2_PLAIN = ("normalize-by-median", "count-median")
 # the murmur path (phase 6): its k, K8's k in phase 3c, K9's register bits
 MURMUR_K = 51
 MURMUR_KS = (20, 33, MURMUR_K)
@@ -355,6 +395,16 @@ QF_READS = 160_000
 QF_TABLE_READS = 20_000
 SLICE4C_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
                 "row_counts")
+# slice 7a (phase 13): the sharded consume over SHARDS in-process shards of
+# the one card, its query of SHARD_QUERY hashes, the kernels its path
+# launches (K17 is claim_scatter and claim_count), and distributed_count
+# over two processes on the first QF_READS phase-5 reads at -x DIST_TABLE
+SHARDS = 4
+SHARD_QUERY = 1 << 20
+SLICE7A_PATH = ("hash2bit_canonical", "band_route", "combine_lanes",
+                "claim_scatter", "claim_count", "bin_scatter_add",
+                "sketch_get_tables")
+DIST_TABLE = 1e7
 
 
 def fail(msg):
@@ -1460,10 +1510,12 @@ def count_records(path):
     return len(lines) // 2, sum(len(x) for x in lines[1::2])
 
 
-def slice2_scripts(workdir, pairs_fa, head_fa, ct, dev, profile, card):
-    """The five slice-2 scripts on `dev`, in `workdir`; returns their
-    walls (and device busy seconds when `profile`), the outputs' sha256,
-    reads and bases written, and the n_unique values the scripts read."""
+def slice2_scripts(workdir, pairs_fa, head_fa, ct, dev, profile, card,
+                   names=None):
+    """The five slice-2 scripts (or those in `names`) on `dev`, in
+    `workdir`; returns their walls (and device busy seconds when
+    `profile`), the outputs' sha256, reads and bases written, and the
+    n_unique values each script read."""
     from khmer_tpu_torch.hashtable import Hashtable
     from khmer_tpu_torch.scripts import (count_median, filter_abund,
                                          filter_abund_single,
@@ -1485,12 +1537,13 @@ def slice2_scripts(workdir, pairs_fa, head_fa, ct, dev, profile, card):
          ["single.fa"]),
         ("count-median", count_median.main,
          [ct, head_fa, "median.csv"], ["median.csv"]))
-    n_unique = []
+    runs = tuple(r for r in runs if names is None or r[0] in names)
+    n_unique = {}
     counted = Hashtable.n_unique_kmers
 
     def n_unique_kmers(self):
-        n_unique.append(counted(self))
-        return n_unique[-1]
+        n_unique.setdefault(running[-1], []).append(counted(self))
+        return n_unique[running[-1]][-1]
 
     out = {"walls": {}, "busy": {}, "steps": {}}
     running = []
@@ -1637,17 +1690,22 @@ def run_slice2(card, dev, tmp, ct, pairs_fa, head_fa):
     with mock.patch.multiple(kernels, **{name: getattr(plain, name)
                                          for name in kernels.KERNELS}):
         ref = slice2_scripts(os.path.join(tmp, "s2_plain"), pairs_fa,
-                             head_fa, ct, dev, False, card)
+                             head_fa, ct, dev, False, card, SLICE2_PLAIN)
     log("phase 5 plain-version walls (s): {}; inside the batch steps: {} "
         "[{}]".format(json.dumps(ref["walls"]), json.dumps(ref["steps"]),
                       card))
-    keys = [k for k in got if k not in ("walls", "busy", "steps")]
+    keys = [k for k in ref if k not in ("walls", "busy", "steps",
+                                        "n_unique")]
     for k in keys:
         if got[k] != ref[k]:
             fail("slice-2 path differs from its plain run in {}: {} vs {}"
                  .format(k, got[k], ref[k]))
-    log("kernels == plain on the card: {}".format(json.dumps(
-        {k: got[k] for k in keys})))
+    for name, values in ref["n_unique"].items():
+        if got["n_unique"].get(name) != values:
+            fail("slice-2 path differs from its plain run in {}'s "
+                 "n_unique".format(name))
+    log("kernels == plain on the card ({}): {}".format(
+        ", ".join(SLICE2_PLAIN), json.dumps({k: got[k] for k in keys})))
     kept = got["pairs.fa.keep reads,bases"][0]
     if not 0 < kept < SLICE2_READS:
         fail("normalize-by-median kept {} of {} reads".format(
@@ -3847,6 +3905,443 @@ def run_qf(card, dev, tmp, pairs_fa, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: slice 7a, the sharded consume, query and CC, and two processes
+# ---------------------------------------------------------------------------
+
+
+def shard_lanes(path, dev):
+    """The first FLAT-base chunk of a file as a shard of the sharded
+    consumer appends it: its K1 lanes as (keys, SENTINEL where the weight
+    is 0; unit weights; stream positions), and the hashes of every lane."""
+    import torch
+
+    from khmer_tpu_torch.hashtable import chunk_lanes
+    from khmer_tpu_torch.native import NativeChunkReader
+
+    with NativeChunkReader(path, K, FLAT) as reader:
+        codes, mask = next(iter(reader))
+    h, w = chunk_lanes(torch.from_numpy(codes).to(dev),
+                       torch.from_numpy(mask).to(dev), K)
+    live = w != 0
+    return (torch.where(live, h, -1), live.to(torch.int32),
+            torch.arange(h.numel(), dtype=torch.int32, device=dev)), h
+
+
+def cap_dest_of(window, shards=SHARDS):
+    """The consumer's room a destination for a routing window
+    (parallel/sharded.py, finish)."""
+    mean = -(-window // shards)
+    return max(64, (mean + mean // 7 + 7) & ~7)
+
+
+def sorted_by_key(out):
+    """(keys, weights, firsts) of a combine's first n_valid lanes, sorted
+    by key, and n_valid."""
+    import torch
+
+    from khmer_tpu_torch import _u64
+
+    k, w, f, nv = out
+    n = int(nv.item())
+    order = torch.sort(_u64.sort_key(k[:n]), stable=True)[1]
+    return (k[:n][order], w[:n][order], f[:n][order], nv)
+
+
+def check_shard_kernels(seed, dev, reads_fa, ct, rec, star):
+    """Phase 13 (a): K15, K16, K17, K3t and K10's relax and jump entry
+    points against their plain versions on the card, bit for bit (K16
+    after a sort by key), with CUDA-event times, the bytes-once bound
+    and, for K3t, the library gather table[idx]."""
+    import torch
+
+    from khmer_tpu_torch import Countgraph, kernels
+    from khmer_tpu_torch.kernels import plain
+
+    log("phase 13 (a): K15 and K16 on the first 2**23-lane chunk of the "
+        "phase-4 file and on a hot chunk (one k-mer, poly-A, on half the "
+        "lanes), K17 on that chunk's distinct lanes against the phase-4 "
+        ".ct and virgin, K3t on its 2**23 hashes, K10's relax and jump on "
+        "phase 7's star")
+    lanes, hashes = shard_lanes(reads_fa, dev)
+    n = hashes.numel()
+    hot = (lanes[0].clone(), torch.ones_like(lanes[1]), lanes[2])
+    hot[0][::2] = 0  # the canonical 2-bit hash of poly-A
+    cap = cap_dest_of(n)
+    # K15
+    runs = {}
+    for name, inp in (("chunk", lanes), ("hot", hot)):
+        got = kernels.band_route(*inp, SHARDS, cap)
+        want = plain.band_route(*inp, SHARDS, cap)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        runs[name] = dict(
+            err=err, n_left=int(got[6].item()),
+            ms=cuda_ms(lambda: kernels.band_route(*inp, SHARDS, cap), 10),
+            plain_ms=cuda_ms(lambda: plain.band_route(*inp, SHARDS, cap),
+                             3),
+            bytes=16 * n + 16 * (SHARDS * cap + n) + 8)
+        log("K15 {}: {} lanes, {} shards, room {}; max_abs_err {}; {} "
+            "leftovers; {:.4f} ms, plain {:.4f}, bound {:.4f}".format(
+                name, n, SHARDS, cap, err, runs[name]["n_left"],
+                runs[name]["ms"], runs[name]["plain_ms"],
+                bound_ms(runs[name]["bytes"])))
+        del got, want
+    if runs["hot"]["n_left"] == 0:
+        fail("K15's hot chunk left no lane behind")
+    r = runs["chunk"]
+    record_kernel(rec, "band_route", max(x["err"] for x in runs.values()),
+                  r["ms"], r["plain_ms"], r["bytes"], lanes=n, room=cap,
+                  hot_ms=runs["hot"]["ms"],
+                  hot_plain_ms=runs["hot"]["plain_ms"],
+                  hot_leftovers=runs["hot"]["n_left"])
+    # K16
+    runs = {}
+    for name, inp in (("chunk", lanes), ("hot", hot)):
+        got = sorted_by_key(kernels.combine_lanes(*inp))
+        want = plain.combine_lanes(*inp)
+        m = int(want[3].item())
+        err = max(max_abs_err(a, b[:m]) for a, b in zip(got[:3], want[:3]))
+        err = max(err, abs(int(got[3].item()) - m))
+        runs[name] = dict(
+            err=err, distinct=m,
+            ms=cuda_ms(lambda: kernels.combine_lanes(*inp), 10),
+            plain_ms=cuda_ms(lambda: plain.combine_lanes(*inp), 3),
+            bytes=32 * n + 8)
+        log("K16 {}: {} lanes, {} distinct; max_abs_err {}; {:.4f} ms, "
+            "plain {:.4f}, bound {:.4f}".format(
+                name, n, m, err, runs[name]["ms"], runs[name]["plain_ms"],
+                bound_ms(runs[name]["bytes"])))
+        if name == "chunk":
+            distinct = tuple(x[:m] for x in want[:3])
+        del got, want
+    r = runs["chunk"]
+    record_kernel(rec, "combine_lanes",
+                  max(x["err"] for x in runs.values()), r["ms"],
+                  r["plain_ms"], r["bytes"], lanes=n,
+                  distinct=r["distinct"], hot_ms=runs["hot"]["ms"],
+                  hot_plain_ms=runs["hot"]["plain_ms"])
+    # K17 and K3t against the phase-4 table
+    table = Countgraph.load(ct, device=dev).storage
+    geom, T = table._geom, len(table.get_tablesizes())
+    m = distinct[0].numel()
+    runs = {}
+    for name, base in (("virgin", None), ("phase-4 .ct", table.table)):
+        out = {}
+        for side, fns in (("kernel", kernels), ("plain", plain)):
+            claim = torch.full_like(table.table, -1)
+            fns.claim_scatter(*distinct, *geom, claim)
+            n_new = torch.zeros(1, dtype=torch.int64, device=dev)
+            fns.claim_count(*distinct, *geom, claim, base, n_new)
+            out[side] = (claim, n_new)
+        err = max(max_abs_err(out["kernel"][0], out["plain"][0]),
+                  max_abs_err(out["kernel"][1], out["plain"][1]))
+        claim, n_new = out["kernel"]
+        del out
+        times = {}
+        for side, fns, reps in (("kernel", kernels, 10), ("plain", plain, 3)):
+            times[side] = (
+                cuda_ms(lambda: fns.claim_scatter(*distinct, *geom, claim),
+                        reps),
+                cuda_ms(lambda: fns.claim_count(*distinct, *geom, claim,
+                                                base, n_new), reps))
+        nbytes = (16 * m + 4 * T * m) + (16 * m + 4 * T * m + 8 +
+                                         (0 if base is None else 4 * T * m))
+        runs[name] = dict(err=err, new=int(n_new.item()), times=times,
+                          bytes=nbytes)
+        log("K17 {}: {} distinct lanes, {} tables; max_abs_err {}; claims "
+            "{:.4f} ms + count {:.4f} ms, plain {:.4f} + {:.4f}; bound "
+            "{:.4f}".format(name, m, T, err, *times["kernel"],
+                            *times["plain"], bound_ms(nbytes)))
+        del claim
+    r = runs["phase-4 .ct"]
+    record_kernel(rec, "claim_news", max(x["err"] for x in runs.values()),
+                  sum(r["times"]["kernel"]), sum(r["times"]["plain"]),
+                  r["bytes"], lanes=m, scatter_ms=r["times"]["kernel"][0],
+                  count_ms=r["times"]["kernel"][1],
+                  virgin_ms=sum(runs["virgin"]["times"]["kernel"]),
+                  virgin_plain_ms=sum(runs["virgin"]["times"]["plain"]))
+    got = kernels.sketch_get_tables(table.table, hashes, *geom)
+    want = plain.sketch_get_tables(table.table, hashes, *geom)
+    idx = plain._bins(hashes, *geom[:2])
+    record_kernel(
+        rec, "sketch_get_tables", max_abs_err(got, want),
+        cuda_ms(lambda: kernels.sketch_get_tables(table.table, hashes,
+                                                  *geom), 10),
+        cuda_ms(lambda: plain.sketch_get_tables(table.table, hashes,
+                                                *geom), 3),
+        8 * n + 8 * T * n,
+        library_ms=cuda_ms(lambda: table.table[idx], 10), keys=n)
+    del got, want, idx, table, lanes, hot, distinct, hashes
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K10's split on phase 7's star
+    Tn, s7, d7 = star
+    src = s7.to(dev, torch.int32).contiguous()
+    dst = d7.to(dev, torch.int32).contiguous()
+    lab = torch.arange(Tn, dtype=torch.int32, device=dev)
+    m_k = kernels.cc_relax(lab, src, dst)
+    m_p = plain.cc_relax(lab, src, dst)
+    flags = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
+    j_k = kernels.cc_jump(m_k, lab, flags[0])
+    j_p = plain.cc_jump(m_p, lab, flags[1])
+    E = src.numel()
+    record_kernel(rec, "cc_relax", max_abs_err(m_k, m_p),
+                  cuda_ms(lambda: kernels.cc_relax(lab, src, dst), 10),
+                  cuda_ms(lambda: plain.cc_relax(lab, src, dst), 3),
+                  8 * E + 8 * Tn, T=Tn, E=E)
+    record_kernel(rec, "cc_jump", max(max_abs_err(j_k, j_p),
+                                      max_abs_err(*flags)),
+                  cuda_ms(lambda: kernels.cc_jump(m_k, lab, flags[0]), 10),
+                  cuda_ms(lambda: plain.cc_jump(m_p, lab, flags[1]), 3),
+                  12 * Tn + 4, T=Tn)
+    torch.cuda.empty_cache()
+
+
+def sharded_consume(fa, spec, dev):
+    """ShardedDeferredConsumer over a data=1, shard=SHARDS mesh of the
+    card, fed by the native loader with `fa`: (consumer, mesh, finish()'s
+    (delta, n_unique, n_consumed, candidates))."""
+    from khmer_tpu_torch.hashtable import CHUNK
+    from khmer_tpu_torch.native import NativeChunkReader
+    from khmer_tpu_torch.parallel import ShardedDeferredConsumer, make_mesh
+
+    mesh = make_mesh([dev] * SHARDS)
+    c = ShardedDeferredConsumer(spec, K, "2bit", mesh=mesh, chunk=CHUNK,
+                                from_codes=True, use_bigcount=True)
+    with NativeChunkReader(fa, K, CHUNK) as reader:
+        for codes, mask in reader:
+            c.add_chunk(codes, mask)
+    out = c.finish(virgin=True)
+    sync(dev)
+    return c, mesh, out
+
+
+def dist_worker(port, pid, fa, out):
+    """One of phase 13 (d)'s two processes: distributed_count of the one
+    file `fa` (process 0's; process 1 dispatches empty chunks), over
+    NCCL where the machine has a card for each process, else over gloo
+    with both on cuda:0; process 0 saves the result."""
+    import torch
+    import torch.distributed as dist
+
+    from khmer_tpu_torch.hashtable import CHUNK
+    from khmer_tpu_torch.ops.sketch_ops import SketchSpec
+    from khmer_tpu_torch.parallel import distributed_count, initialize
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+
+    backend = initialize("127.0.0.1:" + port, 2, pid,
+                         "nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    spec = SketchSpec("byte", tuple(get_n_primes_near_x(4, DIST_TABLE)))
+    t0 = time.perf_counter()
+    # one file: shard_files_for_host gives it to process 0
+    res = distributed_count([fa], spec, K, chunk=CHUNK, use_bigcount=True)
+    wall = time.perf_counter() - t0
+    if pid == 0:
+        np.savez(out, table=res.merged_table(),
+                 uniq=np.int64(res.n_unique_kmers()),
+                 consumed=np.int64(res.n_consumed), wall=np.float64(wall),
+                 backend=np.array(backend),
+                 devices=np.array([str(d) for d in res.mesh.devices]))
+    dist.destroy_process_group()
+    torch.cuda.synchronize()
+
+
+def run_distributed(card, dev, tmp):
+    """Phase 13 (d): distributed_count over two processes on the first
+    QF_READS phase-5 reads (one file: process 1 idles), -k 20 -N 4 -x
+    DIST_TABLE, against a serial consume on the card."""
+    import socket
+
+    from khmer_tpu_torch import Countgraph
+
+    fa = os.path.join(tmp, "qf.fa")
+    out = os.path.join(tmp, "dist.npz")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dist-worker", port, str(pid), fa, out],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for pid in range(2)]
+    results = []
+    try:
+        for p in procs:
+            results.append((p.communicate(timeout=300), p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(rc != 0 for _, rc in results):
+        fail("a distributed_count process failed:\n" + "\n".join(
+            "process {} exited {}:\n{}\n{}".format(pid, rc, o[-2000:],
+                                                   e[-3000:])
+            for pid, ((o, e), rc) in enumerate(results)))
+    got = np.load(out)
+    g = Countgraph(K, DIST_TABLE, 4, device=dev)
+    g.set_use_bigcount(True)
+    _, n_consumed = g.consume_seqfile(fa)
+    serial = g.storage.table.cpu().numpy().view(np.uint32)
+    if not np.array_equal(got["table"], serial) or \
+            int(got["uniq"]) != g.n_unique_kmers() or \
+            int(got["consumed"]) != n_consumed:
+        fail("distributed_count differs from the serial consume")
+    log("phase 13 (d): distributed_count over 2 processes ({} backend, "
+        "shards on {} in process 0; process 1 had no file) on {} reads, "
+        "-N 4 -x {:.0e}: merged table, n_unique {} and n_consumed {} equal "
+        "to a serial consume on the card; the count {:.3f} s, the "
+        "processes' wall {:.3f} s with start-up [{}]".format(
+            str(got["backend"]), list(got["devices"]), QF_READS,
+            DIST_TABLE, int(got["uniq"]), int(got["consumed"]),
+            float(got["wall"]), wall, card))
+    return str(got["backend"])
+
+
+def run_sharded(card, dev, tmp, reads_fa, ct):
+    """Phase 13 (b)-(d): the sharded consume of the phase-4 file (kernels,
+    stage times, profile, plain versions) against the serial table; the
+    sharded query; do_partition_device over the mesh on phase 7's graph;
+    distributed_count over two processes.  Returns the path's
+    launches."""
+    import torch
+
+    from khmer_tpu_torch import (Countgraph, Nodegraph, SubsetPartition,
+                                 kernels)
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.ops import deferred
+    from khmer_tpu_torch.parallel import make_mesh, make_sharded_query
+    from khmer_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    with open(ct + ".info") as f:
+        ct_unique = int([ln for ln in f if ln.startswith(
+            "Total number of unique k-mers:")][0].split(":")[1])
+    serial = Countgraph(K, TABLE_SIZE, 4, device=dev)
+    serial.set_use_bigcount(True)
+    n_reads, n_consumed = serial.consume_seqfile(reads_fa)
+    spec = serial.storage.spec
+    _, hashes = shard_lanes(reads_fa, dev)
+    hashes = hashes[:SHARD_QUERY].contiguous()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    c, mesh, (delta, n_unique, n_cons, cands) = sharded_consume(
+        reads_fa, spec, dev)
+    wall = time.perf_counter() - t0
+    counts = make_sharded_query(spec, mesh, 65535)(c.tables, hashes)
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(sharded.LAST_CONSUME_STATS)
+    want = kernels.sketch_get(serial.storage.table, hashes,
+                              *serial.storage._geom, 65535)
+    if not torch.equal(delta, serial.storage.table):
+        fail("the sharded delta differs from the serial table")
+    if (n_unique, n_cons) != (serial.n_unique_kmers(), n_consumed) or \
+            n_unique != ct_unique:
+        fail("sharded n_unique {} / n_consumed {} differ from the serial "
+             "{} / {} (phase 4's .ct: {})".format(
+                 n_unique, n_cons, serial.n_unique_kmers(), n_consumed,
+                 ct_unique))
+    if not torch.equal(counts, want):
+        fail("the sharded query differs from K3 on the serial table")
+    if cands != serial.storage.bigcount_candidates:
+        fail("the sharded bigcount candidates differ from the serial ones")
+    missing = [k for k in SLICE7A_PATH if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the sharded path: {}".format(missing))
+    log("phase 13 (b): ShardedDeferredConsumer over a data=1, shard={} mesh "
+        "on {} ({} reads of the phase-4 file, -k 20 -N 4 -x 1e8): delta == "
+        "the serial table, n_unique {} == phase 4's .ct, n_consumed {}, "
+        "the query of {} hashes == K3 on the serial table; wall {:.3f} s "
+        "({:.2f} Mbases/s); peak device memory {} bytes = {:.3f} GiB ({} "
+        "held before); {} [{}]".format(
+            SHARDS, dev, n_reads, n_unique, n_cons, SHARD_QUERY, wall,
+            n_cons / wall / 1e6, peak, peak / 2 ** 30, held,
+            json.dumps(stats), card))
+    log("phase 13 launches: {}".format(json.dumps(launches)))
+    del c, delta, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    deferred.reset_stage_times()
+    deferred.enable_timing(True)
+    try:
+        t0 = time.perf_counter()
+        sharded_consume(reads_fa, spec, dev)
+        t_timed = time.perf_counter() - t0
+    finally:
+        deferred.enable_timing(False)
+    log("phase 13 stage ms (each stage synchronised; wall {:.3f} s): {} "
+        "[{}]".format(t_timed, json.dumps(
+            {k: round(v * 1e3, 3) for k, v in deferred.STAGE_TIMES.items()}),
+            card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    device_share("sharded consume", lambda: sharded_consume(reads_fa, spec,
+                                                            dev), card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        t0 = time.perf_counter()
+        pc, _, (pdelta, pu, pn, pcands) = sharded_consume(reads_fa, spec,
+                                                          dev)
+        t_plain = time.perf_counter() - t0
+    if not torch.equal(pdelta, serial.storage.table) or \
+            (pu, pn, pcands) != (n_unique, n_cons, cands):
+        fail("the sharded consume through the plain versions differs")
+    log("phase 13 plain-version run: the same delta, n_unique and "
+        "n_consumed; wall {:.3f} s [{}]".format(t_plain, card))
+    del pc, pdelta, serial
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the sharded CC on phase 7's graph
+    base = os.path.join(tmp, "p7", "kernels", "g")
+    ng = Nodegraph.load(base, device=dev)
+    ng.load_tagset(base + ".tagset")
+    single = SubsetPartition(ng)
+    sync(dev)
+    t0 = time.perf_counter()
+    single.do_partition_device()
+    sync(dev)
+    t_single = time.perf_counter() - t0
+    kernels.reset_launches()
+    meshed = SubsetPartition(ng)
+    t0 = time.perf_counter()
+    meshed.do_partition_device(mesh=make_mesh([dev] * SHARDS))
+    sync(dev)
+    t_mesh = time.perf_counter() - t0
+    for name in ("cc_relax", "cc_jump"):
+        launches[name] = kernels.LAUNCHES[name]
+    if partition_sets(meshed) != partition_sets(single) or \
+            meshed.count_partitions() != single.count_partitions():
+        fail("do_partition_device over the mesh differs from one device")
+    if dev.type == "cuda" and not (launches["cc_relax"] and
+                                   launches["cc_jump"]):
+        fail("do_partition_device over the mesh launched no K10 relax or "
+             "jump")
+    log("phase 13 (c): do_partition_device(mesh of {} shards) == "
+        "do_partition_device on phase 7's graph ({} partitions, {} tags, "
+        "{} edges, {} blocks of 4 rounds); {:.3f} s against {:.3f} s; K10 "
+        "relax {} and jump {} launches [{}]".format(
+            SHARDS, len(partition_sets(meshed)), meshed.device_stats["tags"],
+            meshed.device_stats["edges"], meshed.device_stats["calls"],
+            t_mesh, t_single, launches["cc_relax"], launches["cc_jump"],
+            card))
+    del ng, single, meshed
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_distributed(card, dev, tmp)
+    log("phase 13: {:.1f} s".format(time.perf_counter() - t_phase))
+    return launches
+
+
 def _u64_numpy(t):
     return t.cpu().numpy().view(np.uint64)
 
@@ -3854,12 +4349,19 @@ def _u64_numpy(t):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--dist-worker", nargs=4, metavar=("PORT", "PID", "FA",
+                                                       "OUT"),
+                    help="run one process of phase 13 (d) and exit")
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card")
+    if args.dist_worker:
+        port, pid, fa, out = args.dist_worker
+        dist_worker(port, int(pid), fa, out)
+        return
 
     from khmer_tpu_torch.kernels import _build
     from khmer_tpu_torch.native import get_lib
@@ -3893,6 +4395,8 @@ def main():
         run_knots(card, dev, tmp, args.seed)
         run_slice4c(card, dev, tmp, args.seed)
         run_qf(card, dev, tmp, pairs_fa, args.seed)
+        check_shard_kernels(args.seed, dev, reads_fa, ct, rec, star)
+        slice7a = run_sharded(card, dev, tmp, reads_fa, ct)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by
@@ -3906,6 +4410,13 @@ def main():
     launches.update({k: small[k] for k in ("cyclic_hashes",
                                            "row_counts_cyclic")})
     launches["band_mask_weights"] = slice10["band_mask_weights"]
+    # slice 7a's by the sharded path (phase 13 (b), (c) for K10's split);
+    # K17 is two entry points, a launch each
+    launches.update({k: slice7a[k] for k in (
+        "band_route", "combine_lanes", "sketch_get_tables", "cc_relax",
+        "cc_jump")})
+    launches["claim_news"] = slice7a["claim_scatter"] + \
+        slice7a["claim_count"]
     rec["row_counts"]["murmur_launches"] = murmur["row_counts_murmur"]
 
     from khmer_tpu_torch.kernels import (CC_BLOCK, CC_KERNELS_PER_ROUND,

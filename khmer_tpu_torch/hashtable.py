@@ -38,6 +38,7 @@ they equal the reference's read-by-read loop.
 """
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -92,6 +93,23 @@ def _lane_count(k, bases, hash_kind="2bit"):
     if hash_kind != "2bit":
         return rows * ROW_PAYLOAD
     return 16 * rows * -(-(ROW_PAYLOAD + k - 1) // 16)
+
+
+def chunk_lanes(codes, mask, k, hash_kind="2bit"):
+    """(int64 hashes, int32 weights) of the windows of a flat chunk of
+    cleaned 2-bit codes with the loader's window mask, lane i the window
+    at position i: K1, or for murmur and cyclic K8 (with the bulk-consume
+    complement) or K11 over the chunk's codes decoded to uppercase ASCII
+    (khmer_tpu/hashtable.py: _decode_codes, _chunk_hashes_weights), one
+    lane for each window that ends inside the chunk."""
+    if hash_kind == "2bit":
+        return chunk_hashes(codes, mask, k)
+    ascii = _CODE_ASCII.to(codes.device)[codes.to(torch.int64)]
+    if hash_kind == "cyclic":
+        h = cyclic_window_hashes(ascii, k)
+    else:
+        h = murmur_window_hashes(ascii, k, True)
+    return h, mask[:h.numel()].to(torch.int32)
 
 
 def _first_of_runs(keys, pos=None):
@@ -410,18 +428,8 @@ class Hashtable:
         return murmur_window_hashes(byts, self._ksize, assume_acgt)
 
     def _chunk_lanes(self, codes, mask):
-        """(hashes, weights) of the windows of a flat chunk of cleaned
-        2-bit codes with the loader's window mask, lane i the window at
-        position i: K1, or for murmur and cyclic K8 (with the
-        bulk-consume complement) or K11 over the chunk's codes decoded to
-        uppercase ASCII (khmer_tpu/hashtable.py: _decode_codes,
-        _chunk_hashes_weights), one lane for each window that ends inside
-        the chunk."""
-        if self.hash_kind == "2bit":
-            return chunk_hashes(codes, mask, self._ksize)
-        ascii = _CODE_ASCII.to(codes.device)[codes.to(torch.int64)]
-        h = self._window_hashes(ascii, assume_acgt=True)
-        return h, mask[:h.numel()].to(torch.int32)
+        """chunk_lanes with this table's k and hash."""
+        return chunk_lanes(codes, mask, self._ksize, self.hash_kind)
 
     def _hash_array(self, sequence):
         """All k-mer hashes of a sequence as a numpy uint64 array."""
@@ -472,20 +480,24 @@ class Hashtable:
         self.storage.add_lanes(*self._lanes(sequence))
         return len(sequence) - self._ksize + 1
 
-    def _chunks(self, parser_or_filename, chunk, stats):
-        """(codes, mask) device chunks of the cleaned input stream: a file
-        name goes through the native loader, a parser or any iterable of
-        reads through _FlatBatcher.  Fills stats at the end."""
+    def _host_chunks(self, parser_or_filename, chunk, stats):
+        """(codes, mask) host numpy chunks of the cleaned input stream: a
+        file name goes through the native loader, a parser or any
+        iterable of reads through _FlatBatcher.  Fills stats at the end."""
         if isinstance(parser_or_filename, str):
             from khmer_tpu_torch.native import NativeChunkReader
 
             with NativeChunkReader(parser_or_filename, self._ksize,
                                    chunk) as reader:
-                yield from self._to_device(reader)
+                yield from reader
                 stats.n_reads, stats.n_consumed, _ = reader.stats()
         else:
-            yield from self._to_device(
-                self._batched(parser_or_filename, chunk, stats))
+            yield from self._batched(parser_or_filename, chunk, stats)
+
+    def _chunks(self, parser_or_filename, chunk, stats):
+        """_host_chunks on the table's device."""
+        yield from self._to_device(
+            self._host_chunks(parser_or_filename, chunk, stats))
 
     def _to_device(self, pieces):
         for codes, mask in pieces:
@@ -508,11 +520,73 @@ class Hashtable:
     def consume_seqfile(self, parser_or_filename, chunk=CHUNK):
         """Count every k-mer of every (cleaned) read of a file or parser;
         returns (n_reads, n_consumed).  Parity:
-        Hashtable::consume_seqfile, src/oxli/hashtable.cc:133-158."""
+        Hashtable::consume_seqfile, src/oxli/hashtable.cc:133-158.  With
+        two or more devices for the table's device
+        (parallel.sharded.default_devices) the consume runs sharded over
+        them (_use_sharded, khmer_tpu's rule)."""
+        if self._use_sharded(parser_or_filename):
+            return self._consume_sharded(parser_or_filename, chunk)
         stats = _StreamStats()
         for codes, mask in self._chunks(parser_or_filename, chunk, stats):
             self.storage.add_lanes(*self._chunk_lanes(codes, mask))
         return stats.n_reads, stats.n_consumed
+
+    def _use_sharded(self, parser_or_filename=None):
+        """khmer_tpu's multi-device dispatch rule
+        (khmer_tpu/hashtable.py:1389-1412): never with
+        KHMER_TPU_SHARDED=0/off/serial/false, for a table without a
+        spec (the quotient filter) or with fewer than two devices; always
+        with KHMER_TPU_SHARDED=1/on/force/always/true; else (auto) for a
+        file of at least KHMER_TPU_SHARD_MIN_MB (64) megabytes."""
+        from khmer_tpu_torch.parallel import sharded
+
+        mode = os.environ.get("KHMER_TPU_SHARDED", "auto").lower()
+        if mode in ("0", "off", "serial", "false"):
+            return False
+        if getattr(self.storage, "spec", None) is None:
+            return False
+        if len(sharded.default_devices(self.device)) < 2:
+            return False
+        if mode in ("1", "on", "force", "always", "true"):
+            return True
+        min_mb = float(os.environ.get("KHMER_TPU_SHARD_MIN_MB", "64"))
+        if not isinstance(parser_or_filename, str):
+            return False
+        try:
+            return os.path.getsize(parser_or_filename) >= min_mb * 1e6
+        except OSError:
+            return False
+
+    def _consume_sharded(self, parser_or_filename, chunk=CHUNK):
+        """The multi-device consume (khmer_tpu/hashtable.py:1414-1467):
+        every shard hashes and buffers its own chunks, distinct lanes go
+        to their hash-band owners at the end (parallel/sharded.py), and
+        the table adds the merged delta; n_unique is counted against the
+        table as it was."""
+        from khmer_tpu_torch.parallel.sharded import (ShardedDeferredConsumer,
+                                                      make_mesh)
+
+        st = self.storage
+        consumer = ShardedDeferredConsumer(
+            st.spec, self._ksize, self.hash_kind,
+            mesh=make_mesh(device=self.device), chunk=chunk,
+            from_codes=True,
+            use_bigcount=st.kind == "byte" and st.get_use_bigcount())
+        stats = _StreamStats()
+        for codes, mask in self._host_chunks(parser_or_filename, chunk,
+                                             stats):
+            consumer.add_chunk(codes, mask)
+        virgin = int(kernels.count_nonzero(st.table, 0,
+                                           st.table.numel()).item()) == 0
+        delta, n_unique, n_consumed, cands = consumer.finish(
+            None if virgin else st.table, virgin=virgin)
+        st.table.add_(delta.to(st.device))
+        st._n_unique += n_unique
+        st._loaded_occupied = None
+        st._wrote()
+        if cands and st.get_use_bigcount():
+            st.bigcount_candidates.update(cands)
+        return stats.n_reads, n_consumed
 
     def consume_fasta(self, parser_or_filename):
         """1.x name for consume_seqfile (_cpy_khmer.cc hash_consume_fasta)."""

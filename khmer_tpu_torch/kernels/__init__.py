@@ -25,7 +25,9 @@ KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "abund_hist", "bin_scatter_add", "row_counts", "diginorm_chain",
            "trim_chain", "murmur_hashes", "hll_update", "cc_rounds",
            "cyclic_hashes", "band_mask_weights", "count_nonzero",
-           "pack_oxli_bytes")
+           "pack_oxli_bytes", "band_route", "combine_lanes",
+           "claim_scatter", "claim_count", "sketch_get_tables", "cc_relax",
+           "cc_jump")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # row_counts' launches by hash kind (its 2-bit, murmur and cyclic variants)
 ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0, "cyclic": 0}
@@ -33,8 +35,13 @@ MURMUR_MAX_K = 255  # csrc/murmur.cuh kMaxK
 CYCLIC_MAX_K = 255  # csrc/cyclic.cuh kMaxK
 # sketch_update is the partitioned update of csrc/sketch.cu: count,
 # bucket scan, bucket, partition count, two scan launches, place, apply,
-# hot and finish; cc_rounds launches CC_KERNELS_PER_ROUND a round
-KERNELS_PER_CALL = dict(dict.fromkeys(KERNELS, 1), sketch_update=10)
+# hot and finish; cc_rounds launches CC_KERNELS_PER_ROUND a round;
+# band_route counts, scans and places; combine_lanes inserts and
+# compacts; cc_relax relaxes twice and cc_jump jumps twice; K17
+# (claim_news) is claim_scatter and claim_count, a launch each
+KERNELS_PER_CALL = dict(dict.fromkeys(KERNELS, 1), sketch_update=10,
+                        band_route=3, combine_lanes=2, cc_relax=2,
+                        cc_jump=2)
 CC_KERNELS_PER_ROUND = 4  # csrc/cc.cu: two relaxes, two pointer jumps
 CC_BLOCK = 8  # rounds a call of connected_components (khmer_tpu's block)
 MAX_CC = (1 << 31) - 1  # nodes and edges: K10 indexes labels as int32
@@ -51,6 +58,8 @@ CHAIN_WALK_FIRST = 1024  # csrc/chain.cu kWalkFirst
 CHAIN_MAX_ROUNDS = 63  # csrc/chain.cu kMaxRounds: a tag is round << 26 | ~b
 MAX_CHAIN_BUNDLES = (1 << 26) - 1
 _META_WORDS = 8               # csrc/sketch.cu kMetaWords
+MAX_SHARDS = 256              # csrc/route.cu kMaxShards
+MAX_LANES = (1 << 31) - 1     # K15 and K16 rank lanes as int32
 
 
 def reset_launches():
@@ -95,10 +104,14 @@ def _partition_work(n_records, nbins, dev):
             torch.zeros(_META_WORDS, dtype=torch.int32, device=dev))
 
 
-def _launch(name, *args, entry=None, count=None):
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.function(entry or "khmer_" + name)(*args,
-                                                    ctypes.c_void_p(stream))
+def _launch(name, dev, *args, entry=None, count=None):
+    """Call the C entry point of kernel `name` on dev's current stream,
+    with dev as the current device (the kernels launch on the calling
+    thread's current device, which may be another card than dev's)."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.function(entry or "khmer_" + name)(
+            *args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("{} launch failed with CUDA error {}".format(
             name, err))
@@ -121,8 +134,8 @@ def hash2bit_canonical(codes, mask, k):
     hashes = torch.empty(n, dtype=torch.int64, device=dev)
     weights = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        _launch("hash2bit_canonical", codes.data_ptr(), mask.data_ptr(), n,
-                k, hashes.data_ptr(), weights.data_ptr())
+        _launch("hash2bit_canonical", dev, codes.data_ptr(), mask.data_ptr(),
+                n, k, hashes.data_ptr(), weights.data_ptr())
     return hashes, weights
 
 
@@ -155,7 +168,7 @@ def sketch_update(table, hashes, weights, sizes, offsets, recips, n_unique,
     if n:
         scratch, meta = _partition_work(n * sizes.numel(), table.numel(),
                                         dev)
-        _launch("sketch_update", table.data_ptr(), table.numel(),
+        _launch("sketch_update", dev, table.data_ptr(), table.numel(),
                 hashes.data_ptr(), weights.data_ptr(), n, sizes.numel(),
                 sizes.data_ptr(), offsets.data_ptr(), recips.data_ptr(),
                 scratch.data_ptr(), meta.data_ptr(), is_new.data_ptr(),
@@ -177,7 +190,7 @@ def sketch_get(table, hashes, sizes, offsets, recips, cap):
     n = hashes.numel()
     out = torch.empty(n, dtype=torch.uint16, device=dev)
     if n:
-        _launch("sketch_get", table.data_ptr(), hashes.data_ptr(), n,
+        _launch("sketch_get", dev, table.data_ptr(), hashes.data_ptr(), n,
                 sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
                 recips.data_ptr(), int(cap), out.data_ptr())
     return out
@@ -208,12 +221,11 @@ def abund_hist(keys, table, sizes, offsets, recips, track, t_sizes,
     n = keys.numel()
     new = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        _launch("abund_hist", keys.data_ptr(), n, table.data_ptr(),
+        _launch("abund_hist", dev, keys.data_ptr(), n, table.data_ptr(),
                 sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
                 recips.data_ptr(), track.data_ptr(), t_sizes.numel(),
-                t_sizes.data_ptr(), t_offsets.data_ptr(),
-                t_recips.data_ptr(), int(cap), hist.data_ptr(),
-                new.data_ptr())
+                t_sizes.data_ptr(), t_offsets.data_ptr(), t_recips.data_ptr(),
+                int(cap), hist.data_ptr(), new.data_ptr())
     return new
 
 
@@ -258,8 +270,8 @@ def band_mask_weights(hashes, weights, total, band=None, table=None,
     if n:
         bmin, bmax = (0, 0) if band is None else band
         masked = table is not None
-        _launch("band_mask_weights", hashes.data_ptr(), weights.data_ptr(),
-                n, band is not None, int(bmin), int(bmax),
+        _launch("band_mask_weights", dev, hashes.data_ptr(),
+                weights.data_ptr(), n, band is not None, int(bmin), int(bmax),
                 table.data_ptr() if masked else None,
                 sizes.numel() if masked else 0,
                 sizes.data_ptr() if masked else None,
@@ -288,7 +300,7 @@ def bin_scatter_add(table, idx, vals):
     n = idx.numel()
     if n:
         bad = torch.empty(1, dtype=torch.int32, device=dev)
-        _launch("bin_scatter_add", table.data_ptr(), table.numel(),
+        _launch("bin_scatter_add", dev, table.data_ptr(), table.numel(),
                 idx.data_ptr(), vals.data_ptr(), n, bad.data_ptr())
         if int(bad):
             raise IndexError("bin_scatter_add: bin index out of range")
@@ -326,11 +338,10 @@ def row_counts(codes, lengths, k, table, sizes, offsets, recips, cap,
     hashes = torch.empty((B, W), dtype=torch.int64, device=dev) \
         if want_hashes else None
     if B:
-        _launch("row_counts", codes.data_ptr(), lengths.data_ptr(), B, L, k,
-                table.data_ptr(), sizes.numel(), sizes.data_ptr(),
+        _launch("row_counts", dev, codes.data_ptr(), lengths.data_ptr(), B, L,
+                k, table.data_ptr(), sizes.numel(), sizes.data_ptr(),
                 offsets.data_ptr(), recips.data_ptr(), int(cap),
-                counts.data_ptr(),
-                hashes.data_ptr() if want_hashes else None,
+                counts.data_ptr(), hashes.data_ptr() if want_hashes else None,
                 entry="khmer_row_counts" + ("" if hash_kind == "2bit" else
                                             "_" + hash_kind))
         ROW_COUNTS_BY_HASH[hash_kind] += 1
@@ -360,8 +371,8 @@ def murmur_hashes(byts, lengths, k, assume_acgt=False):
     W = L - k + 1
     hashes = torch.empty((B, W), dtype=torch.int64, device=dev)
     if B:
-        _launch("murmur_hashes", byts.data_ptr(), B, L, k, int(assume_acgt),
-                hashes.data_ptr())
+        _launch("murmur_hashes", dev, byts.data_ptr(), B, L, k,
+                int(assume_acgt), hashes.data_ptr())
     return hashes, plain.window_valid(lengths, W, k)
 
 
@@ -387,7 +398,8 @@ def cyclic_hashes(byts, lengths, k):
     W = L - k + 1
     hashes = torch.empty((B, W), dtype=torch.int64, device=dev)
     if B:
-        _launch("cyclic_hashes", byts.data_ptr(), B, L, k, hashes.data_ptr())
+        _launch("cyclic_hashes", dev, byts.data_ptr(), B, L, k,
+                hashes.data_ptr())
     return hashes, plain.window_valid(lengths, W, k)
 
 
@@ -414,8 +426,8 @@ def hll_update(byts, weights, k, p, m, registers):
         return plain.hll_update(byts, weights, k, p, m, registers)
     n = byts.numel()
     if n >= k:
-        _launch("hll_update", byts.data_ptr(), weights.data_ptr(), n, k, p,
-                m, registers.data_ptr())
+        _launch("hll_update", dev, byts.data_ptr(), weights.data_ptr(), n, k,
+                p, m, registers.data_ptr())
 
 
 def _check_chain(ids, valid, real, pre):
@@ -465,7 +477,7 @@ def diginorm_chain(ids, valid, real, pre, C):
     tally, scratch = _chain_scratch("diginorm_chain", B, pre.numel(), dev)
     keep = torch.empty(B, dtype=torch.uint8, device=dev)
     if B:
-        _launch("diginorm_chain", ids.data_ptr(), valid.data_ptr(),
+        _launch("diginorm_chain", dev, ids.data_ptr(), valid.data_ptr(),
                 real.data_ptr(), pre.data_ptr(), B, nw, int(C),
                 tally.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
                 pre.numel())
@@ -488,7 +500,7 @@ def trim_chain(ids, valid, real, pre, trim_at, dn_cov, cutoff):
     branch = torch.empty(B, dtype=torch.uint8, device=dev)
     first_bad = torch.empty(2 * B, dtype=torch.int32, device=dev)
     if B:
-        _launch("trim_chain", ids.data_ptr(), valid.data_ptr(),
+        _launch("trim_chain", dev, ids.data_ptr(), valid.data_ptr(),
                 real.data_ptr(), pre.data_ptr(), B, nw, int(trim_at),
                 0 if dn_cov is None else int(dn_cov), dn_cov is not None,
                 int(cutoff), tally.data_ptr(), branch.data_ptr(),
@@ -532,8 +544,8 @@ def cc_rounds(labels, src, dst, rounds=8):
     out = torch.empty_like(labels)
     scratch = torch.empty(2 * T, dtype=torch.int32, device=dev)
     changed = torch.empty(1, dtype=torch.int32, device=dev)
-    _launch("cc_rounds", labels.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            T, E, rounds, out.data_ptr(), scratch.data_ptr(),
+    _launch("cc_rounds", dev, labels.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), T, E, rounds, out.data_ptr(), scratch.data_ptr(),
             changed.data_ptr(), count=CC_KERNELS_PER_ROUND * rounds)
     return out, changed[0] != 0
 
@@ -551,7 +563,7 @@ def count_nonzero(table, begin, end):
         return plain.count_nonzero(table, begin, end)
     total = torch.zeros(1, dtype=torch.int64, device=dev)
     if end > begin:
-        _launch("count_nonzero", table.data_ptr(), begin, end,
+        _launch("count_nonzero", dev, table.data_ptr(), begin, end,
                 total.data_ptr())
     return total
 
@@ -587,7 +599,211 @@ def pack_oxli_bytes(table, kind, sizes, offsets, bytes_per_table):
     n_out = starts[-1] + int(bytes_per_table[-1])
     out_offs = torch.tensor(starts, dtype=torch.int64, device=dev)
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
-    _launch("pack_oxli_bytes", table.data_ptr(), PACK_KINDS.index(kind), T,
-            sizes.data_ptr(), offsets.data_ptr(), out_offs.data_ptr(), n_out,
-            out.data_ptr())
+    _launch("pack_oxli_bytes", dev, table.data_ptr(), PACK_KINDS.index(kind),
+            T, sizes.data_ptr(), offsets.data_ptr(), out_offs.data_ptr(),
+            n_out, out.data_ptr())
+    return out
+
+
+def _check_lanes(name, keys, wgts, firsts):
+    """The (int64 key, int32 weight, int32 first) lanes of one buffer."""
+    dev = keys.device
+    _check("keys", keys, torch.int64, dev)
+    _check("weights", wgts, torch.int32, dev)
+    _check("firsts", firsts, torch.int32, dev)
+    if keys.dim() != 1 or wgts.shape != keys.shape or \
+            firsts.shape != keys.shape:
+        raise ValueError("{}: need keys, weights and firsts [n]".format(name))
+    if keys.numel() > MAX_LANES:
+        raise ValueError("{}: {} lanes exceed {}".format(
+            name, keys.numel(), MAX_LANES))
+    return dev, keys.numel()
+
+
+def _dead_lanes(shape, dev):
+    """(SENTINEL keys, zero weights, IDX_SENTINEL firsts) of a shape."""
+    return (torch.full(shape, plain.SENTINEL, dtype=torch.int64, device=dev),
+            torch.zeros(shape, dtype=torch.int32, device=dev),
+            torch.full(shape, plain.IDX_SENTINEL, dtype=torch.int32,
+                       device=dev))
+
+
+def band_route(hashes, weights, firsts, n_shards, cap):
+    """K15: route (hash int64, weight int32, first int32) lanes [n] to
+    their hash-band owners (plain.band_owner; a lane with weight 0 has
+    none): lane i goes to slot pos of its owner's row of the [n_shards,
+    cap] send buffers when pos, its rank among that owner's lanes in lane
+    order, is below cap; the owned lanes past cap are compacted into the
+    leftover buffers [n] in (owner, lane) order.  Unfilled slots are
+    (2**64 - 1, 0, 2**32 - 1).  Returns (send_h, send_w, send_f, left_h,
+    left_w, left_f, int64 n_left [1]) without synchronising; see
+    csrc/route.cu."""
+    dev, n = _check_lanes("band_route", hashes, weights, firsts)
+    if not 1 <= n_shards <= MAX_SHARDS or cap < 1:
+        raise ValueError("band_route: need 1 <= n_shards <= {} and cap >= "
+                         "1".format(MAX_SHARDS))
+    if dev.type != "cuda":
+        return plain.band_route(hashes, weights, firsts, n_shards, cap)
+    send = _dead_lanes((n_shards, cap), dev) if n == 0 else (
+        torch.empty((n_shards, cap), dtype=torch.int64, device=dev),
+        torch.empty((n_shards, cap), dtype=torch.int32, device=dev),
+        torch.empty((n_shards, cap), dtype=torch.int32, device=dev))
+    left = (torch.empty(n, dtype=torch.int64, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    n_left = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n:
+        words = _build.function("khmer_route_scratch_words")(n, n_shards)
+        counts = torch.empty(words, dtype=torch.int32, device=dev)
+        total = torch.empty(n_shards + 1, dtype=torch.int64, device=dev)
+        _launch("band_route", dev, hashes.data_ptr(), weights.data_ptr(),
+                firsts.data_ptr(), n, n_shards, int(cap),
+                *(t.data_ptr() for t in send), *(t.data_ptr() for t in left),
+                n_left.data_ptr(), counts.data_ptr(), total.data_ptr())
+    return (*send, *left, n_left)
+
+
+def combine_lanes(keys, wgts, firsts):
+    """K16: combine the duplicate keys of a lane buffer (int64 keys, int32
+    weights and first positions, [n]; keys 2**64 - 1 are dead): the
+    distinct live keys compacted to the front, each with its total
+    min(sum of min(w, 2**20) mod 2**32, 2**20) and its least first
+    position (unsigned), the other slots (2**64 - 1, 0, 2**32 - 1).
+    Returns (keys, wgts, firsts, int64 n_valid [1]) without
+    synchronising.  The order of the distinct keys is unspecified (the
+    plain version sorts them); see csrc/combine.cu."""
+    dev, n = _check_lanes("combine_lanes", keys, wgts, firsts)
+    if dev.type != "cuda":
+        return plain.combine_lanes(keys, wgts, firsts)
+    out = _dead_lanes((n,), dev) if n == 0 else (
+        torch.empty(n, dtype=torch.int64, device=dev),
+        torch.empty(n, dtype=torch.int32, device=dev),
+        torch.empty(n, dtype=torch.int32, device=dev))
+    n_valid = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n:
+        S = max(64, 1 << (2 * n - 1).bit_length())
+        slots = torch.empty(2 * S, dtype=torch.int64, device=dev)
+        _launch("combine_lanes", dev, keys.data_ptr(), wgts.data_ptr(),
+                firsts.data_ptr(), n, *(t.data_ptr() for t in out),
+                n_valid.data_ptr(), slots.data_ptr(), S)
+    return (*out, n_valid)
+
+
+def _check_claims(keys, wgts, firsts, sizes, offsets, recips, claim):
+    dev, n = _check_lanes("claim_news", keys, wgts, firsts)
+    _check_geometry(claim, sizes, offsets, recips)
+    if claim.device != dev:
+        raise ValueError("claim_news: claims on {}, lanes on {}".format(
+            claim.device, dev))
+    return dev, n
+
+
+def claim_scatter(keys, wgts, firsts, sizes, offsets, recips, claim):
+    """K17 (a): claim[off_t + h % p_t] = min(itself, first), unsigned, for
+    every table t and every live lane (key not 2**64 - 1, weight not 0),
+    in place; claim is int32 [total bins (+1)], uint32 bit patterns, set
+    to 2**32 - 1 before the first call.  See csrc/claims.cu."""
+    dev, n = _check_claims(keys, wgts, firsts, sizes, offsets, recips,
+                           claim)
+    if dev.type != "cuda":
+        return plain.claim_scatter(keys, wgts, firsts, sizes, offsets,
+                                   recips, claim)
+    if n:
+        _launch("claim_scatter", dev, keys.data_ptr(), wgts.data_ptr(),
+                firsts.data_ptr(), n, sizes.numel(), sizes.data_ptr(),
+                offsets.data_ptr(), recips.data_ptr(), claim.data_ptr())
+
+
+def claim_count(keys, wgts, firsts, sizes, offsets, recips, claim, base,
+                n_new):
+    """K17 (b): n_new (int64 [1]) += the live lanes new to the table: for
+    some table t, claim[off_t + h % p_t] == first (the lane's hash is the
+    bin's first claimant over the whole mesh) and base (the pre-consume
+    table, or None when it is known all-zero) is 0 there.  See
+    csrc/claims.cu."""
+    dev, n = _check_claims(keys, wgts, firsts, sizes, offsets, recips,
+                           claim)
+    _check("n_new", n_new, torch.int64, dev)
+    if base is not None:
+        _check("base", base, torch.int32, dev)
+        if base.shape != claim.shape:
+            raise ValueError("claim_count: base and claim differ in shape")
+    if dev.type != "cuda":
+        return plain.claim_count(keys, wgts, firsts, sizes, offsets, recips,
+                                 claim, base, n_new)
+    if n:
+        _launch("claim_count", dev, keys.data_ptr(), wgts.data_ptr(),
+                firsts.data_ptr(), n, sizes.numel(), sizes.data_ptr(),
+                offsets.data_ptr(), recips.data_ptr(), claim.data_ptr(),
+                base.data_ptr() if base is not None else None,
+                n_new.data_ptr())
+
+
+def sketch_get_tables(table, hashes, sizes, offsets, recips):
+    """K3t: every table's bin of every hash, int32 [T, n] (uint32 bit
+    patterns): K3's gather without the min over tables or the cap, for
+    the sharded query, which sums them over the mesh first."""
+    dev = table.device
+    _check_geometry(table, sizes, offsets, recips)
+    _check("hashes", hashes, torch.int64, dev)
+    if dev.type != "cuda":
+        return plain.sketch_get_tables(table, hashes, sizes, offsets, recips)
+    n = hashes.numel()
+    out = torch.empty((sizes.numel(), n), dtype=torch.int32, device=dev)
+    if n:
+        _launch("sketch_get_tables", dev, table.data_ptr(), hashes.data_ptr(),
+                n, sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
+                recips.data_ptr(), out.data_ptr())
+    return out
+
+
+def _check_cc(labels, *edges):
+    dev = labels.device
+    _check("labels", labels, torch.int32, dev)
+    for t in edges:
+        _check("edges", t, torch.int32, dev)
+        if t.dim() != 1:
+            raise ValueError("cc: edges must be 1-D")
+    if labels.dim() != 1:
+        raise ValueError("cc: labels must be 1-D")
+    return dev
+
+
+def cc_relax(labels, src, dst):
+    """K10's relaxes of one round, for the sharded round: m =
+    lab.at[dst].min(lab[src]), then m.at[src].min(m[dst]), over int32
+    labels [T] and edges [E] as cc_rounds takes them.  Returns new int32
+    labels [T]; see csrc/cc.cu."""
+    dev = _check_cc(labels, src, dst)
+    if src.shape != dst.shape:
+        raise ValueError("cc_relax: src and dst differ in length")
+    check_cc_sizes(labels.numel(), src.numel())
+    if labels.numel() == 0:
+        return labels.clone()
+    if dev.type != "cuda":
+        return plain.cc_relax(labels, src, dst)
+    out = torch.empty_like(labels)
+    scratch = torch.empty_like(labels)
+    _launch("cc_relax", dev, labels.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            labels.numel(), src.numel(), out.data_ptr(), scratch.data_ptr())
+    return out
+
+
+def cc_jump(m, labels, changed):
+    """K10's jumps of one round: m[m] taken twice (int32 [T]), and
+    changed (int32 [1], zeroed by the caller) set to 1 where the result
+    differs from labels, the round's input.  Returns the new labels."""
+    dev = _check_cc(m, labels.reshape(-1))
+    _check("changed", changed, torch.int32, dev)
+    if labels.shape != m.shape or changed.numel() != 1:
+        raise ValueError("cc_jump: need m and labels [T], changed [1]")
+    check_cc_sizes(m.numel(), 0)
+    if m.numel() == 0:
+        return m.clone()
+    if dev.type != "cuda":
+        return plain.cc_jump(m, labels, changed)
+    out = torch.empty_like(m)
+    scratch = torch.empty_like(m)
+    _launch("cc_jump", dev, m.data_ptr(), m.numel(), labels.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), changed.data_ptr())
     return out

@@ -19,7 +19,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("hash2bit", "sketch", "abund", "rows", "chain", "murmur", "hll",
-           "cc", "cyclic", "filter", "save")
+           "cc", "cyclic", "filter", "save", "route", "combine", "claims")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,6 +48,14 @@ SIGNATURES = {
                                 _P, _U, _U, _I, _P, _P, _P),
     "khmer_count_nonzero": (_P, _LL, _LL, _P, _P),
     "khmer_pack_oxli_bytes": (_P, _I, _I, _P, _P, _P, _LL, _P, _P),
+    "khmer_sketch_get_tables": (_P, _P, _LL, _I, _P, _P, _P, _P, _P),
+    "khmer_cc_relax": (_P, _P, _P, _LL, _LL, _P, _P, _P),
+    "khmer_cc_jump": (_P, _LL, _P, _P, _P, _P, _P),
+    "khmer_band_route": (_P, _P, _P, _LL, _I, _LL, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P),
+    "khmer_combine_lanes": (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _P),
+    "khmer_claim_scatter": (_P, _P, _P, _LL, _I, _P, _P, _P, _P, _P),
+    "khmer_claim_count": (_P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P),
     "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P, _LL,
                              _P),
     "khmer_trim_chain": (_P, _P, _P, _P, _I, _I, _U, _U, _I, _U, _P, _P, _P,
@@ -57,6 +65,7 @@ SIGNATURES = {
 HELPERS = {
     "khmer_partition_scratch_bytes": ((_LL, _LL), _LL),
     "khmer_chain_scratch_bytes": ((_LL, _LL), _LL),
+    "khmer_route_scratch_words": ((_LL, _I), _LL),
 }
 
 _lock = threading.Lock()

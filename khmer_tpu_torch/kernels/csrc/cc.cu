@@ -24,6 +24,13 @@
 // then X and Y swap roles, Y' being the next round's copy of A.  The
 // flag is an int32 set by one atomicOr a block (__syncthreads_or).
 //
+// The sharded round (khmer_tpu/partition_device.py:make_sharded_cc_round,
+// :80-110) puts an all-reduce min of the labels between the relaxes and
+// the jumps, so the same kernels also run as two entry points:
+// khmer_cc_relax (the two relaxes of one round over a shard's edges,
+// labels in, relaxed labels out) and khmer_cc_jump (the two jumps, and
+// the flag of a label that differs from the round's input).
+//
 // Bound: bytes, per round the edges (8 bytes each) read twice with a
 // random 4-byte gather and atomic each, and the labels read and written
 // about six times; chip_smoke.py (phase 3d) states the call's bound as
@@ -85,7 +92,65 @@ jump_last_kernel(const unsigned* __restrict__ in, unsigned T,
     if (__syncthreads_or(differs) && threadIdx.x == 0) atomicOr(changed, 1);
 }
 
+// v = in[in[i]]; out[i] = v; *changed |= any v != lab[i]
+__global__ void __launch_bounds__(kThreads)
+jump_cmp_kernel(const unsigned* __restrict__ in, unsigned T,
+                const unsigned* __restrict__ lab, unsigned* __restrict__ out,
+                int* changed) {
+    int differs = 0;
+    for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < T;
+         i += gridDim.x * blockDim.x) {
+        const unsigned v = __ldg(in + at(__ldg(in + i), T));
+        differs |= v != __ldg(lab + i);
+        out[i] = v;
+    }
+    if (__syncthreads_or(differs) && threadIdx.x == 0) atomicOr(changed, 1);
+}
+
 }  // namespace
+
+// One round's relaxes over a shard's edges: X = labels, relaxed towards
+// dst; out = X relaxed towards src.  labels, out and scratch hold T u32.
+extern "C" int khmer_cc_relax(const void* labels, const void* src,
+                              const void* dst, long long T, long long E,
+                              void* out, void* scratch, void* stream) {
+    if (T < 1 || T > 0x7FFFFFFFLL || E < 0 || E > 0x7FFFFFFFLL)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const size_t bytes = (size_t)T * sizeof(unsigned);
+    const unsigned* A = (const unsigned*)labels;
+    unsigned* X = (unsigned*)scratch;
+    unsigned* Y = (unsigned*)out;
+    const unsigned* S = (const unsigned*)src;
+    const unsigned* D = (const unsigned*)dst;
+    cudaError_t err;
+    if ((err = cudaMemcpyAsync(X, A, bytes, cudaMemcpyDeviceToDevice, s)))
+        return (int)err;
+    relax_kernel<<<cc_blocks(E), kThreads, 0, s>>>(S, D, E, (unsigned)T, A,
+                                                   X);
+    if ((err = cudaMemcpyAsync(Y, X, bytes, cudaMemcpyDeviceToDevice, s)))
+        return (int)err;
+    relax_kernel<<<cc_blocks(E), kThreads, 0, s>>>(D, S, E, (unsigned)T, X,
+                                                   Y);
+    return (int)cudaGetLastError();
+}
+
+// One round's jumps: out = m[m] taken twice (scratch holds the first);
+// *changed |= some out[i] != labels[i] (the round's input labels); the
+// caller zeroes changed.  m, labels, out and scratch hold T u32.
+extern "C" int khmer_cc_jump(const void* m, long long T, const void* labels,
+                             void* out, void* scratch, void* changed,
+                             void* stream) {
+    if (T < 1 || T > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const unsigned t = (unsigned)T;
+    jump_kernel<<<cc_blocks(T), kThreads, 0, s>>>((const unsigned*)m, t,
+                                                  (unsigned*)scratch);
+    jump_cmp_kernel<<<cc_blocks(T), kThreads, 0, s>>>(
+        (const unsigned*)scratch, t, (const unsigned*)labels,
+        (unsigned*)out, (int*)changed);
+    return (int)cudaGetLastError();
+}
 
 // labels_in [T] is read only; labels_out [T] gets the result; scratch
 // holds 2 * T u32; changed (one int32) is set to 0 or 1.  T and E are

@@ -40,6 +40,18 @@ __device__ __forceinline__ long long bin_of(u64 h, int t,
                                   __ldg(recips + t)) + __ldg(offs + t);
 }
 
+// murmur's 64-bit finalizer, a bijection of u64: it spreads the 2-bit
+// hashes (raw k-mer values below 4^k) over all 64 bits before a band or a
+// hash slot is taken from them (khmer_tpu/ops/hashing.py:_fmix64_v)
+__device__ __forceinline__ u64 mix64(u64 x) {
+    x ^= x >> 33;
+    x *= 0xff51afd7ed558ccdULL;
+    x ^= x >> 33;
+    x *= 0xc4ceb9fe1a85ec53ULL;
+    x ^= x >> 33;
+    return x;
+}
+
 // ---- the gather of K3 and K4 -----------------------------------------------
 
 constexpr int kMaxTables = 32;

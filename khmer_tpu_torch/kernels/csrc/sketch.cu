@@ -764,6 +764,33 @@ sketch_get_kernel(const unsigned* __restrict__ table,
     }
 }
 
+// ---- K3t -------------------------------------------------------------------
+
+// out[t * n + i] = table[bin of hashes[i] in table t]: K3's gather without
+// the min over tables, for the sharded query, which sums each table's bins
+// over the mesh before the cap and the min (khmer_tpu/parallel/
+// sharded.py:make_sharded_query, :114-119).  A thread a key, its T loads
+// issued before any store.
+__global__ void __launch_bounds__(kGetThreads)
+sketch_get_tables_kernel(const unsigned* __restrict__ table,
+                         const u64* __restrict__ hashes, long long n, int T,
+                         const long long* __restrict__ sizes,
+                         const long long* __restrict__ offs,
+                         const u64* __restrict__ recips,
+                         unsigned* __restrict__ out) {
+    __shared__ Geometry g;
+    load_geometry(g, T, sizes, offs, recips);
+    __syncthreads();
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const u64 h = __ldcs(hashes + i);
+    unsigned v[kMaxTables];
+#pragma unroll 4
+    for (int t = 0; t < T; t++) v[t] = __ldg(table + bin_in(g, h, t));
+#pragma unroll 4
+    for (int t = 0; t < T; t++) __stcs(out + (long long)t * n + i, v[t]);
+}
+
 // ---- bin_scatter_add -------------------------------------------------------
 
 // kAddUnroll lanes a thread, all loads first; no thread returns before
@@ -950,6 +977,22 @@ extern "C" int khmer_sketch_get(const void* table, const void* hashes,
     default: return get_launch<0>(table, hashes, n, T, sizes, offs, recips,
                                   cap, vec, out, blocks, threads, stream);
     }
+}
+
+// out: u32 [T, n]
+extern "C" int khmer_sketch_get_tables(const void* table, const void* hashes,
+                                       long long n, int T, const void* sizes,
+                                       const void* offs, const void* recips,
+                                       void* out, void* stream) {
+    if (T < 1 || T > kMaxTables) return (int)cudaErrorInvalidValue;
+    if (n <= 0) return 0;
+    sketch_get_tables_kernel<<<(unsigned)((n + kGetThreads - 1) /
+                                          kGetThreads),
+                               kGetThreads, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)table, (const u64*)hashes, n, T,
+        (const long long*)sizes, (const long long*)offs, (const u64*)recips,
+        (unsigned*)out);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int khmer_bin_scatter_add(void* table, long long nbins,

@@ -410,3 +410,167 @@ def pack_oxli_bytes(table, kind, sizes, offsets, bytes_per_table):
             shifts = torch.arange(8, dtype=torch.int64, device=dev)
             outs.append((padded << shifts).sum(1).to(torch.uint8))
     return torch.cat(outs)
+
+
+# the dead-lane patterns of the sharded consume (khmer_tpu/ops/deferred.py:
+# SENTINEL, IDX_SENTINEL and TOTAL_CLAMP) as int64 and int32 bit patterns
+SENTINEL = -1
+IDX_SENTINEL = -1
+TOTAL_CLAMP = 1 << 20
+_FLIP32 = -(1 << 31)  # x ^ _FLIP32 orders int32 patterns as uint32
+
+
+def i32(x):
+    """int64 values in [0, 2**32) -> their int32 bit patterns."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _udiv(x, d):
+    """Unsigned x // d for int64 patterns x and a Python int 0 < d < 2**63:
+    with x = hi + 2**63 * top and 2**63 = a * d + b, the quotient is
+    hi // d + top * (a + (hi % d >= d - b))."""
+    top = x < 0
+    hi = x & ((1 << 63) - 1)
+    q = torch.div(hi, d, rounding_mode="floor")
+    a, b = divmod(1 << 63, d)
+    carry = (hi - q * d) >= d - b
+    return q + top * (a + carry)
+
+
+def band_owner(hashes, n_shards):
+    """Owner shard of every hash (int64 [n]): min(fmix64(h) // ((2**64 -
+    1) // n_shards), n_shards - 1)."""
+    if n_shards == 1:
+        return torch.zeros_like(hashes)
+    q = _udiv(_fmix(hashes), ((1 << 64) - 1) // n_shards)
+    return q.clamp(max=n_shards - 1)
+
+
+def band_route(hashes, weights, firsts, n_shards, cap):
+    """(hash, weight, first) lanes into [n_shards, cap] send buffers by
+    owner, lanes with weight 0 owned by none, in a stable sort's order;
+    the owned lanes past cap compacted into leftover buffers [n].
+    Unfilled slots are (SENTINEL, 0, IDX_SENTINEL).  Returns (send_h,
+    send_w, send_f, left_h, left_w, left_f, int64 n_left [1])."""
+    n, dev = hashes.numel(), hashes.device
+    owner = torch.where(weights != 0, band_owner(hashes, n_shards),
+                        n_shards)
+    o_s, order = torch.sort(owner, stable=True)
+    h_s, w_s, f_s = hashes[order], weights[order], firsts[order]
+    counts = torch.bincount(o_s, minlength=n_shards + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n, device=dev) - starts[o_s]
+    real = o_s < n_shards
+    ok = real & (pos < cap)
+    left = real & ~ok
+    slot = (o_s * cap + pos)[ok]
+    send = []
+    for src, fill in ((h_s, SENTINEL), (w_s, 0), (f_s, IDX_SENTINEL)):
+        buf = torch.full((n_shards * cap,), fill, dtype=src.dtype,
+                         device=dev)
+        buf[slot] = src[ok]
+        send.append(buf.view(n_shards, cap))
+    n_left = left.sum().reshape(1)
+    lefts = []
+    for src, fill in ((h_s, SENTINEL), (w_s, 0), (f_s, IDX_SENTINEL)):
+        buf = torch.full((n,), fill, dtype=src.dtype, device=dev)
+        kept = src[left]
+        buf[:kept.numel()] = kept
+        lefts.append(buf)
+    return (*send, *lefts, n_left)
+
+
+def combine_lanes(keys, wgts, firsts):
+    """The distinct live keys (not SENTINEL) of a lane buffer, in
+    ascending unsigned order, compacted to the front: each with its total
+    min(sum of min(w, 2**20) mod 2**32, 2**20) and its least first
+    position (u32); the other slots (SENTINEL, 0, IDX_SENTINEL).  Returns
+    (keys, wgts, firsts, int64 n_valid [1])."""
+    n, dev = keys.numel(), keys.device
+    _, order = torch.sort(_u64.sort_key(keys), stable=True)
+    k = keys[order]
+    w = _u64.u32(wgts[order]).clamp(max=TOTAL_CLAMP)
+    f = _u64.u32(firsts[order])
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = k[1:] != k[:-1]
+    rid = torch.cumsum(head, 0) - 1
+    runs = k[head]
+    tot = torch.zeros(runs.numel(), dtype=torch.int64, device=dev)
+    tot.index_add_(0, rid, w)
+    tot = (tot & 0xFFFFFFFF).clamp(max=TOTAL_CLAMP)
+    first = torch.full((runs.numel(),), (1 << 32) - 1, dtype=torch.int64,
+                       device=dev)
+    first.scatter_reduce_(0, rid, f, "amin")
+    live = runs != SENTINEL
+    nv = int(live.sum())
+    out_k = torch.full((n,), SENTINEL, dtype=torch.int64, device=dev)
+    out_w = torch.zeros(n, dtype=torch.int32, device=dev)
+    out_f = torch.full((n,), IDX_SENTINEL, dtype=torch.int32, device=dev)
+    out_k[:nv] = runs[live]
+    out_w[:nv] = i32(tot[live])
+    out_f[:nv] = i32(first[live])
+    return out_k, out_w, out_f, torch.full((1,), nv, dtype=torch.int64,
+                                           device=dev)
+
+
+def _live_lanes(keys, wgts, firsts):
+    live = (keys != SENTINEL) & (wgts != 0)
+    return keys[live], firsts[live]
+
+
+def claim_scatter(keys, wgts, firsts, sizes, offsets, recips, claim):
+    """claim[bin_t(h)] = min(itself, first) (u32) for every table and
+    every live lane (key not SENTINEL, weight not 0), in place (recips
+    unused)."""
+    h, f = _live_lanes(keys, wgts, firsts)
+    idx = _bins(h, sizes, offsets).reshape(-1)
+    c = claim ^ _FLIP32
+    c.scatter_reduce_(0, idx, (f ^ _FLIP32).repeat(sizes.numel()), "amin")
+    claim.copy_(c ^ _FLIP32)
+
+
+def claim_count(keys, wgts, firsts, sizes, offsets, recips, claim, base,
+                n_new):
+    """n_new (int64 [1]) += the live lanes that hold some table's claim
+    (claim[bin_t] == first) where base (None: a virgin table) is 0."""
+    h, f = _live_lanes(keys, wgts, firsts)
+    idx = _bins(h, sizes, offsets)
+    win = claim[idx] == f[None, :]
+    if base is not None:
+        win &= base[idx] == 0
+    n_new += win.any(0).sum()
+
+
+def sketch_get_tables(table, hashes, sizes, offsets, recips):
+    """Every table's bin of every hash, int32 [T, n] (recips unused)."""
+    return table[_bins(hashes, sizes, offsets)]
+
+
+def _cc_at(x, T):
+    return x.clamp(max=T - 1)
+
+
+def cc_relax(labels, src, dst):
+    """One round's relaxes of cc_rounds: m = lab.at[dst].min(lab[src]);
+    m.at[src].min(m[dst]) (int32 [T], uint32 bit patterns)."""
+    T = labels.numel()
+    lab = _u64.u32(labels)
+    s, d = _u64.u32(src), _u64.u32(dst)
+    s_in, d_in = s < T, d < T
+    m = lab.clone()
+    m.scatter_reduce_(0, d[d_in], lab[_cc_at(s, T)][d_in], "amin")
+    m2 = m.clone()
+    m2.scatter_reduce_(0, s[s_in], m[_cc_at(d, T)][s_in], "amin")
+    return m2.to(torch.int32)
+
+
+def cc_jump(m, labels, changed):
+    """One round's jumps of cc_rounds: m[m] taken twice (int32 [T]);
+    changed (int32 [1]) |= 1 where it differs from labels, the round's
+    input."""
+    T = m.numel()
+    x = _u64.u32(m)
+    x = x[_cc_at(x, T)]
+    x = x[_cc_at(x, T)]
+    changed |= (x != _u64.u32(labels)).any().to(torch.int32)
+    return x.to(torch.int32)

@@ -8,9 +8,12 @@ reaches) by min-label propagation with pointer jumping, in blocks of
 rounds of kernel K10 (kernels.cc_rounds), until a block changes nothing.
 The components are the reference's partitions as SETS of tags.
 
-The sharded round (khmer_tpu's make_sharded_cc_round and
-connected_components_sharded) comes with the multi-GPU slice of the
-port.
+The sharded engine (khmer_tpu's make_sharded_cc_round and
+connected_components_sharded, :80-137) spreads the edge list over the
+shards of a Mesh (parallel/comm.py): every round each shard relaxes its
+own edges (K10's relax entry point), the labels go through an all-reduce
+min, and the two pointer jumps follow (K10's jump entry point), so edges
+never move and only the label vector crosses the mesh.
 """
 
 import numpy as np
@@ -41,6 +44,74 @@ def connected_components(n_nodes, src, dst, device=None, stats=None):
     if stats is not None:
         stats["calls"] = calls
     return labels
+
+
+def make_sharded_cc_round(mesh, rounds=4):
+    """step(labels, src_sh, dst_sh) -> (labels, changed): `rounds` CC
+    rounds over a mesh, labels replicated (one int32 [T] tensor per local
+    shard) and the edges sharded (src_sh, dst_sh: each local shard's
+    int32 edges).  A round relaxes each shard's edges, takes the min over
+    the mesh and jumps twice; changed says whether a round changed a
+    label anywhere."""
+    def step(labels, src_sh, dst_sh):
+        flags = [torch.zeros(1, dtype=torch.int32, device=d)
+                 for d in mesh.devices]
+        for _ in range(rounds):
+            relaxed = [kernels.cc_relax(lab, s, d)
+                       for lab, s, d in zip(labels, src_sh, dst_sh)]
+            relaxed = mesh.all_reduce(relaxed, "umin32")
+            # shards of one device hold one replica of the labels
+            jumped = {}
+            out = []
+            for m, lab, flag in zip(relaxed, labels, flags):
+                key = (id(m), id(lab))
+                if key not in jumped:
+                    jumped[key] = kernels.cc_jump(m, lab, flag)
+                out.append(jumped[key])
+            labels = out
+        return labels, mesh.total(flags, "max") != 0
+
+    return step
+
+
+def connected_components_sharded(mesh, n_nodes, src, dst, block=4,
+                                 stats=None):
+    """connected_components over a mesh: the edge list (uint32 numpy or
+    integer tensors) padded with (0, 0) edges to a multiple of the mesh's
+    size, rank r holding the r-th equal slice, then blocks of `block`
+    rounds until one changes nothing.  Returns the int32 labels [n_nodes]
+    on the mesh's first device; `stats` gets the number of blocks
+    ("calls")."""
+    NS = mesh.size
+    src, dst = _host_edges(src), _host_edges(dst)
+    E = src.size
+    per = -(-max(E, 1) // NS)
+    pad = per * NS - E
+    src = np.concatenate([src, np.zeros(pad, np.uint32)]).view(np.int32)
+    dst = np.concatenate([dst, np.zeros(pad, np.uint32)]).view(np.int32)
+    src_sh = [torch.from_numpy(src[r * per:(r + 1) * per]).to(d)
+              for r, d in zip(mesh.ranks, mesh.devices)]
+    dst_sh = [torch.from_numpy(dst[r * per:(r + 1) * per]).to(d)
+              for r, d in zip(mesh.ranks, mesh.devices)]
+    labels = mesh.replicate(torch.arange(n_nodes, dtype=torch.int32))
+    step = make_sharded_cc_round(mesh, rounds=block)
+    calls = 0
+    while True:
+        labels, changed = step(labels, src_sh, dst_sh)
+        calls += 1
+        if not changed:
+            break
+    if stats is not None:
+        stats["calls"] = calls
+    return labels[0]
+
+
+def _host_edges(arr):
+    """An edge array (uint32 numpy, or an integer tensor) as uint32
+    numpy."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(torch.int64).cpu().numpy().astype(np.uint32)
+    return np.ascontiguousarray(np.asarray(arr, np.uint32))
 
 
 def _edges(arr, dev):

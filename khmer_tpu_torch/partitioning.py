@@ -367,12 +367,12 @@ class SubsetPartition:
         on the card (partition_device.connected_components) instead of
         the host union.  The same partitions AS SETS OF TAGS as
         do_partition; ids are assigned in first-seed order, so pmap BYTE
-        parity stays with do_partition."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "do_partition_device(mesh=...) is not ported yet (slice 7 "
-                "of the port)")
-        from khmer_tpu_torch.partition_device import connected_components
+        parity stays with do_partition.  With `mesh` (a
+        parallel.make_mesh Mesh) the edge list is sharded over its shards
+        and the labels are min-reduced across them every round
+        (partition_device.connected_components_sharded)."""
+        from khmer_tpu_torch.partition_device import (
+            connected_components, connected_components_sharded)
 
         tags = self._sorted_tags_cache()
         tag_keys = self._tag_keys()
@@ -394,7 +394,10 @@ class SubsetPartition:
         seeded[dst] = True
         seeded = seeded.cpu().numpy()
         stats = {"tags": int(n), "edges": int(src.numel()), "calls": 0}
-        if src.numel():
+        if src.numel() and mesh is not None:
+            labels = connected_components_sharded(
+                mesh, n, src, dst, stats=stats).cpu().numpy().view(np.uint32)
+        elif src.numel():
             labels = connected_components(
                 n, src.to(torch.int32), dst.to(torch.int32), dev,
                 stats=stats).cpu().numpy().view(np.uint32)

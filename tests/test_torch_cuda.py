@@ -1849,3 +1849,256 @@ def test_raw_bytes_routes_on_card(dev, kind, density):
         raw[str(d)] = st.raw_bytes()
     assert np.array_equal(raw["cpu"], raw[str(dev)])
     assert kernels.LAUNCHES["pack_oxli_bytes"] == 1
+
+
+# ---------------------------------------------------------------------------
+# slice 7a: K15 band_route, K16 combine_lanes, K17 claim_news, K3t
+# sketch_get_tables and K10's split, and the sharded consume on the card
+# ---------------------------------------------------------------------------
+
+
+def _route_lanes(case, n=5000, seed=0):
+    """(hash, weight, first) lanes: random; empty; all dead; every lane
+    one key (one owner); a hot key on half the lanes."""
+    rng = np.random.default_rng(seed)
+    if case == "empty":
+        n = 0
+    h = rng.integers(0, 2 ** 64, n, dtype=np.uint64)
+    w = rng.integers(1, 5, n).astype(np.uint32)
+    w[rng.random(n) < 0.1] = 0
+    f = rng.permutation(n).astype(np.uint32)
+    if case == "dead":
+        h[:] = 2 ** 64 - 1
+        w[:] = 0
+    elif case == "one_key":
+        h[:] = h[0] if n else 0
+    elif case == "hot":
+        h[::2] = 0
+    return (_u64.as_tensor(h, "cpu"), torch.from_numpy(w.view(np.int32)),
+            torch.from_numpy(f.view(np.int32)))
+
+
+ROUTE_CASES = ["random", "empty", "dead", "one_key", "hot"]
+
+
+@pytest.mark.parametrize("ns,cap", [(1, 64), (1, 7000), (4, 1400), (4, 3),
+                                    (8, 700), (256, 30)])
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_band_route(dev, case, ns, cap):
+    """Every output (send and leftover buffers, n_left) equals the plain
+    version's stable placement bit for bit, over tiles of 2048 lanes."""
+    lanes = _route_lanes(case)
+    kernels.reset_launches()
+    got = kernels.band_route(*(t.to(dev) for t in lanes), ns, cap)
+    torch.cuda.synchronize()
+    want = plain.band_route(*lanes, ns, cap)
+    for g, x in zip(got, want):
+        assert torch.equal(g.cpu(), x)
+    if lanes[0].numel():
+        assert kernels.LAUNCHES["band_route"] == 3
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 5000, (1 << 20) + 7])
+@pytest.mark.parametrize("case", ["random", "dead", "one_key", "hot"])
+def test_combine_lanes(dev, case, n):
+    """The distinct keys, totals (weights near the 2**20 clamp, sums that
+    wrap mod 2**32) and first positions equal the plain version's after
+    a sort by key; n_valid equal; the tail dead."""
+    rng = np.random.default_rng(n)
+    h, _, f = _route_lanes(case, n, seed=n)
+    if case == "random":
+        h = h[torch.from_numpy(rng.integers(0, max(n // 3, 1), n))]
+    w = torch.from_numpy(rng.choice(np.array(
+        [0, 1, 7, (1 << 20) - 1, 1 << 20, (1 << 21) + 3, (1 << 32) - 1],
+        np.uint32), n).view(np.int32))
+    kernels.reset_launches()
+    gk, gw, gf, gn = kernels.combine_lanes(h.to(dev), w.to(dev), f.to(dev))
+    torch.cuda.synchronize()
+    pk, pw, pf, pn = plain.combine_lanes(h, w, f)
+    m = int(pn)
+    assert int(gn) == m
+    gk, gw, gf = gk.cpu(), gw.cpu(), gf.cpu()
+    order = torch.sort(_u64.sort_key(gk[:m]), stable=True)[1]
+    for g, x in zip((gk, gw, gf), (pk, pw, pf)):
+        assert torch.equal(g[:m][order], x[:m])
+        assert torch.equal(g[m:], x[m:])
+    assert kernels.LAUNCHES["combine_lanes"] == (2 if n else 0)
+
+
+@pytest.mark.parametrize("virgin", [True, False])
+@pytest.mark.parametrize("sizes", [(1009,), (1009, 1013, 1019), (16,) * 32])
+@pytest.mark.parametrize("case", ["random", "empty", "dead", "one_key"])
+def test_claim_news(dev, case, sizes, virgin):
+    """K17 (a) over two shards' lanes into one claim array each, the
+    unsigned min of the two, then (b): the claims and the count equal
+    the plain version's."""
+    spec = SketchSpec("byte", sizes)
+    geom = [g.to(dev) for g in spec.geometry("cpu")]
+    rng = np.random.default_rng(len(sizes))
+    base = _table(rng, sizes, 3) if not virgin else None
+    shards = [_route_lanes(case, 3000, seed=s) for s in range(2)]
+    out = {}
+    for side, fns, d, g in (("card", kernels, dev, geom),
+                            ("plain", plain, "cpu",
+                             spec.geometry("cpu"))):
+        claims = []
+        for k, w, f in shards:
+            c = torch.full((spec.total_bins + 1,), -1, dtype=torch.int32,
+                           device=d)
+            fns.claim_scatter(k.to(d), w.to(d), f.to(d), *g, c)
+            claims.append(c)
+        c = (claims[0] ^ -(1 << 31)).minimum(claims[1] ^ -(1 << 31)) ^ \
+            -(1 << 31)
+        n_new = torch.zeros(1, dtype=torch.int64, device=d)
+        for k, w, f in shards:
+            fns.claim_count(k.to(d), w.to(d), f.to(d), *g, c,
+                            None if base is None else base.to(d), n_new)
+        out[side] = (c.cpu(), int(n_new))
+    assert torch.equal(out["card"][0], out["plain"][0])
+    assert out["card"][1] == out["plain"][1]
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 100003])
+@pytest.mark.parametrize("sizes", [(1009,), (1009, 1013, 1019), (16,) * 32])
+def test_sketch_get_tables(dev, sizes, n):
+    rng = np.random.default_rng(n)
+    spec = SketchSpec("byte", sizes)
+    table = _table(rng, sizes, 2 ** 32)
+    h = _u64.as_tensor(_hashes(rng, n, max(n, 1)), "cpu")
+    got = kernels.sketch_get_tables(table.to(dev), h.to(dev),
+                                    *[g.to(dev) for g in
+                                      spec.geometry("cpu")])
+    want = plain.sketch_get_tables(table, h, *spec.geometry("cpu"))
+    assert got.shape == (len(sizes), n)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["one_node", "padding", "star", "path",
+                                  "duplicates", "random"])
+def test_cc_relax_jump(dev, case):
+    """Three rounds of K10's relax and jump entry points equal the plain
+    versions' and cc_rounds' labels and changed flag."""
+    T, src, dst = _cc_graph(case)
+    s, d = _as_i32(src, dev), _as_i32(dst, dev)
+    lab = torch.arange(T, dtype=torch.int32, device=dev)
+    want = torch.arange(T, dtype=torch.int32)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    w_changed = torch.zeros(1, dtype=torch.int32)
+    kernels.reset_launches()
+    for _ in range(3):
+        m = kernels.cc_relax(lab, s, d)
+        pm = plain.cc_relax(want, _as_i32(src), _as_i32(dst))
+        assert torch.equal(m.cpu(), pm)
+        lab = kernels.cc_jump(m, lab, changed)
+        want = plain.cc_jump(pm, want, w_changed)
+        assert torch.equal(lab.cpu(), want)
+    torch.cuda.synchronize()
+    rounds, r_changed = plain.cc_rounds(torch.arange(T, dtype=torch.int32),
+                                        _as_i32(src), _as_i32(dst), 3)
+    assert torch.equal(lab.cpu(), rounds)
+    assert bool(changed.item()) == bool(w_changed.item()) == bool(r_changed)
+    assert kernels.LAUNCHES["cc_relax"] == kernels.LAUNCHES["cc_jump"] == 6
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_consume_on_card(dev, tmp_path, shards):
+    """consume_seqfile over `shards` in-process shards on the card (a
+    poly-A read past 255) equals the serial consume on the card: table,
+    n_unique, n_consumed and bigcounts; K15, K16 and K17 launched."""
+    from khmer_tpu_torch.parallel import sharded
+
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, 5)
+    # tables wide enough that no bin passes 255 by collisions (the
+    # sharded consume's bigcount candidates are the k-mers whose own
+    # count passes 255, as in khmer_tpu)
+    primes = get_n_primes_near_x(3, 1_000_000)
+    serial = Countgraph(20, primes=primes, device=dev)
+    serial.set_use_bigcount(True)
+    want = serial.consume_seqfile(fa)
+    g = Countgraph(20, primes=primes, device=dev)
+    g.set_use_bigcount(True)
+    kernels.reset_launches()
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(sharded, "default_devices",
+                   lambda device=None: [torch.device(dev)] * shards)
+        mp.setenv("KHMER_TPU_SHARDED", "1")
+        got = g.consume_seqfile(fa, chunk=1 << 14)
+    finally:
+        mp.undo()
+    assert got == want
+    assert torch.equal(g.storage.table, serial.storage.table)
+    assert g.n_unique_kmers() == serial.n_unique_kmers()
+    assert g.storage.resolved_bigcounts() == \
+        serial.storage.resolved_bigcounts()
+    for name in ("band_route", "combine_lanes", "claim_scatter",
+                 "claim_count", "bin_scatter_add", "hash2bit_canonical"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+def test_mesh_across_cards(tmp_path):
+    """With two cards or more: the sharded consume over one in-process
+    shard a card, and distributed_count over one NCCL process a card
+    (tests/torch_mp_worker.py, one file, so that the other processes
+    idle), each equal to the serial consume on the first card (table,
+    n_unique, n_consumed and, for the processes, the query of the
+    bigcount candidates)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from khmer_tpu_torch.native import NativeChunkReader
+    from khmer_tpu_torch.parallel import ShardedDeferredConsumer, make_mesh
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    n = torch.cuda.device_count()
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, 7, n_reads=3000)
+    primes = get_n_primes_near_x(3, 100000)
+    serial = Countgraph(20, primes=primes, device="cuda:0")
+    serial.set_use_bigcount(True)
+    _, n_consumed = serial.consume_seqfile(fa)
+    table = serial.storage.table
+    spec = serial.storage.spec
+    mesh = make_mesh([torch.device("cuda", i) for i in range(n)])
+    c = ShardedDeferredConsumer(spec, 20, "2bit", mesh=mesh, chunk=4096,
+                                from_codes=True, use_bigcount=True)
+    with NativeChunkReader(fa, 20, 4096) as reader:
+        for codes, mask in reader:
+            c.add_chunk(codes, mask)
+    delta, n_unique, n_cons, _ = c.finish(virgin=True)
+    assert torch.equal(delta.to("cuda:0"), table)
+    assert (n_unique, n_cons) == (serial.n_unique_kmers(), n_consumed)
+    worker = os.path.join(os.path.dirname(__file__), "torch_mp_worker.py")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    procs = [subprocess.Popen([sys.executable, worker, port, str(pid),
+                               str(n), fa, str(tmp_path), "nccl"], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for pid in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=240), p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (out, err), rc in outs:
+        assert rc == 0, err[-3000:]
+    got = np.load(str(tmp_path / "result.npz"))
+    assert str(got["backend"]) == "nccl" and int(got["shards"]) == n
+    assert np.array_equal(got["table"], table.cpu().numpy().view(np.uint32))
+    assert int(got["uniq"]) == serial.n_unique_kmers()
+    assert int(got["consumed"]) == n_consumed
+    want = serial.storage.get_lanes(_u64.as_tensor(got["probe"], "cuda:0"),
+                                    65535).cpu().numpy()
+    assert np.array_equal(got["counts"], want)

@@ -28,6 +28,7 @@ from khmer_tpu.partitioning import SubsetPartition as JaxSubsetPartition
 from khmer_tpu_torch import Nodegraph, convert, graph, kernels, partitioning
 from khmer_tpu_torch.partition_device import (connected_components,
                                               host_union_find)
+from khmer_tpu_torch.parallel import make_mesh
 from khmer_tpu_torch.partitioning import SubsetPartition
 
 SIZE = 20011
@@ -298,8 +299,12 @@ def test_partition_device_matches_khmer_tpu(state, tmp_path):
     assert _partition_sets(ps) == sets
     assert ps.count_partitions() == host.count_partitions()
     assert ps.device_stats["edges"] > 0 and ps.device_stats["calls"] >= 1
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ps.do_partition_device(mesh=object())
+    # the sharded engine over four CPU shards gives the same pmap
+    meshed = SubsetPartition(p)
+    meshed.do_partition_device(mesh=make_mesh(["cpu"] * 4))
+    meshed.save_partitionmap(str(tmp_path / "mesh.pmap"))
+    assert _read(str(tmp_path / "mesh.pmap")) == \
+        _read(str(tmp_path / "jax.pmap"))
 
 
 def test_cc_sizes_checked_below_int32():
