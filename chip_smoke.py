@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
      also timed at k = 1 and 32; K2 also on a skewed batch (one hash on
      half the lanes: a hot partition), and each of K2's passes timed
      apart (torch.profiler); K3 also on 2**23 distinct keys, with the
-     random 32-byte sectors it reads a second; K4 on a chunk's distinct
+     random 32-byte sectors it reads a second, and with each one
+     table's geometry (the reads of phase 10's knot walk and stop-tag
+     flags, Storage.get_lanes(tables=)); K4 on a chunk's distinct
      hashes, all absent and every count 0, and on a main-path window
      (the K2 batch's distinct hashes in first-occurrence order, half of
      them tracked);
@@ -180,10 +182,10 @@ Phases (any failure exits non-zero; nothing is caught):
      group is the lump); on the lump load-graph, make-initial-stoptags,
      partition-graph --stoptags and find-knots -x 2e8 -N 4;
      filter-stoptags; then load-graph, partition-graph, merge-,
-     annotate- and extract-partitions of the cut reads.  Held against
-     the same runs of steps 1-4 (through filter-stoptags) through the
-     plain versions on the card (every file after every run identical);
-     the stop tags must not be empty.  K1, K2, K3 and bin_scatter_add
+     annotate- and extract-partitions of the cut reads (its plain-version
+     runs of steps 1-4 were cut for the time limit: phase 3 holds K1-K3
+     and bin_scatter_add to their plain versions); the stop tags must not
+     be empty.  K1, K2, K3 and bin_scatter_add
      must have been launched by this run; walls, device busy shares, K3
      launches by script, the repartitions' batches, walks and traversals
      taken again, the stop-tag count, the lump's partitions before and
@@ -237,6 +239,24 @@ Phases (any failure exits non-zero; nothing is caught):
      at -N 4 -x 1e7, one file, so that process 1 idles: NCCL where the
      machine shows two cards or more, else gloo with both on cuda:0
      (printed), its merged table and n_unique equal to a serial consume.
+  14. the bin-sharded table (slice 15): (a) K18 (owned_claims: claims,
+     then flags and bigcount candidates), K19 (owned_add) and K20
+     (owned_get) against their plain versions, bit for bit (candidates
+     as a set), on the first 2**23-lane chunk of the phase-4 file (its
+     first lanes replaced by keys whose bins are every piece's first and
+     last bin and the last table's last bin) on each of 4 pieces
+     of the phase-4 .ct; (b) Storage.shard_table over 4 shards of the
+     card, then consume_seqfile of the phase-4 file (the deferred
+     counter): its saved .ct (bigcount section included), raw bytes,
+     n_occupied and n_unique equal to phase 4's serial K2 table; wall,
+     stage ms, device busy, peak memory and each piece's bytes printed,
+     and the same run through the plain versions equal; (c) the deferred
+     counter on a whole table gives the same .ct; (d) a 4-piece Nodegraph
+     of phase 7's geometry takes consume_seqfile_and_tag of phase 7's
+     reads: its tags and raw bytes (packed a piece at a time by K14 in
+     the bit kind) equal phase 7's graph, find_all_tags
+     from three seeds and do_partition_device over the 4-shard mesh equal
+     the whole graph's.  K18-K20 must have been launched by (b) and (d).
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
 """
 
@@ -309,6 +329,12 @@ SOURCES = {
                  "khmer_tpu/partition_device.py:80"),
     "cc_jump": ("khmer_tpu_torch/kernels/csrc/cc.cu",
                 "khmer_tpu/partition_device.py:80"),
+    "owned_claims": ("khmer_tpu_torch/kernels/csrc/binshard.cu",
+                     "khmer_tpu/ops/deferred.py:431"),
+    "owned_add": ("khmer_tpu_torch/kernels/csrc/binshard.cu",
+                  "khmer_tpu/ops/deferred.py:466"),
+    "owned_get": ("khmer_tpu_torch/kernels/csrc/binshard.cu",
+                  "khmer_tpu/storage.py:245"),
 }
 # the kernels each path must launch: phase 4 (slice 1) and phase 5
 # (slice 2, which loads .ct files and counts as slice 1 does)
@@ -405,6 +431,14 @@ SLICE7A_PATH = ("hash2bit_canonical", "band_route", "combine_lanes",
                 "claim_scatter", "claim_count", "bin_scatter_add",
                 "sketch_get_tables")
 DIST_TABLE = 1e7
+# slice 15 (phase 14): the bin-sharded table in BINSHARD_PIECES pieces of
+# the one card, and the kernels its path launches (K1 hashes the chunks
+# and tags' rows, K16 combines the counter's cycles and ledger, K13 and
+# K14 save, K10's relax and jump partition over the mesh)
+BINSHARD_PIECES = 4
+SLICE15_PATH = ("hash2bit_canonical", "combine_lanes", "owned_claims",
+                "owned_add", "owned_get", "count_nonzero", "pack_oxli_bytes",
+                "cc_relax", "cc_jump")
 
 
 def fail(msg):
@@ -678,6 +712,14 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
             err = max(err, max_abs_err(
                 kernels.sketch_get(post, keys, *geom, cap),
                 plain.sketch_get(post, keys, *geom, cap)))
+        # one table's geometry, as Storage.get_lanes(tables=slice(t, t +
+        # 1)) reads it for the knot walk and the stop-tag flags (phase 10)
+        for t in range(T):
+            one = tuple(x[t:t + 1] for x in geom)
+            for cap in (0xFFFF, 1):
+                err = max(err, max_abs_err(
+                    kernels.sketch_get(post, keys, *one, cap),
+                    plain.sketch_get(post, keys, *one, cap)))
         n_keys = int(torch.unique(keys).numel())
         bins = plain._bins(keys, *geom[:2])
         ms = cuda_ms(lambda: kernels.sketch_get(post, keys, *geom, 65535),
@@ -3206,13 +3248,11 @@ def knot_steps(fa):
         ("extract-partitions (filtered)", extract_partitions.main,
          ["lumpfilt-out", "lump.fa.stopfilt.part"])]
 
-KNOT_CHECKED = 7  # steps 1-4 (through filter-stoptags): held to plain runs
 
-
-def knot_scripts(workdir, fa, dev, profile, card, steps):
-    """The first `steps` runs of knot_steps on `dev`, in `workdir`; after
-    extract-partitions the largest group file becomes lump.fa.  Returns
-    walls, device busy seconds (when `profile`), K3 launches by script,
+def knot_scripts(workdir, fa, dev, card):
+    """The runs of knot_steps on `dev`, in `workdir`, each profiled;
+    after extract-partitions the largest group file becomes lump.fa.
+    Returns walls, device busy seconds, K3 launches by script,
     _KnotWalk's numbers by repartition call, and after each run the
     sha256 of every file in workdir."""
     import shutil
@@ -3231,7 +3271,7 @@ def knot_scripts(workdir, fa, dev, profile, card, steps):
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        for name, fn, argv in knot_steps(fa)[:steps]:
+        for name, fn, argv in knot_steps(fa):
             err = io.StringIO()
             run = lambda: fn(argv, device=dev)  # noqa: E731
             before = kernels.LAUNCHES["sketch_get"]
@@ -3240,14 +3280,8 @@ def knot_scripts(workdir, fa, dev, profile, card, steps):
                 with contextlib.redirect_stderr(err), mock.patch.object(
                         partitioning.SubsetPartition,
                         "repartition_largest_partition", keep_stats):
-                    if profile:
-                        wall, busy = device_share(name, run, card)
-                        out["busy"][name] = busy
-                    else:
-                        t0 = time.perf_counter()
-                        run()
-                        sync(dev)
-                        wall = time.perf_counter() - t0
+                    wall, busy = device_share(name, run, card)
+                    out["busy"][name] = busy
             except BaseException:
                 sys.stderr.write(err.getvalue()[-20000:])
                 raise
@@ -3289,12 +3323,13 @@ def partitions_in(part_file):
 
 def run_knots(card, dev, tmp, seed):
     """Phase 10: the knot-removal workflow on a metagenome with a lump,
-    through the port's scripts on the card, steps 1-4 held to the same
-    runs through the plain versions; returns the path's launches."""
+    through the port's scripts on the card; returns the path's
+    launches.  (Its plain-version runs of steps 1-4, about 75 s, were cut
+    for the time limit: K1-K3 and bin_scatter_add, all its kernels, are
+    held to their plain versions in phase 3.)"""
     import torch
 
     from khmer_tpu_torch import kernels
-    from khmer_tpu_torch.kernels import plain
 
     wd = os.path.join(tmp, "p10")
     os.makedirs(wd)
@@ -3312,8 +3347,7 @@ def run_knots(card, dev, tmp, seed):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    got = knot_scripts(os.path.join(wd, "kernels"), fa, dev, True, card,
-                       len(knot_steps(fa)))
+    got = knot_scripts(os.path.join(wd, "kernels"), fa, dev, card)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log("phase 10 launches: {}".format(json.dumps(launches)))
@@ -3335,19 +3369,6 @@ def run_knots(card, dev, tmp, seed):
     for i, st in enumerate(got["knots"]):
         log("repartition_largest_partition call {}: {}".format(
             i, json.dumps(st)))
-    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
-                                         for name in kernels.KERNELS}):
-        ref = knot_scripts(os.path.join(wd, "plain"), fa, dev, False, card,
-                           KNOT_CHECKED)
-    log("phase 10 plain-version walls (s): {} [{}]".format(
-        json.dumps(ref["walls"]), card))
-    for step, files in ref["files"].items():
-        mine = got["files"][step]
-        bad = sorted(f for f in set(files) | set(mine)
-                     if files.get(f) != mine.get(f))
-        if bad:
-            fail("knot-removal path differs from its plain run after {} in "
-                 "{}".format(step, "; ".join(bad[:10])))
     final = got["files"]["filter-stoptags"]
     n_stop = (got["sizes"]["lump.stoptags"] - 18) // 8
     if not n_stop or "lump.fa.stopfilt" not in final or \
@@ -3361,8 +3382,8 @@ def run_knots(card, dev, tmp, seed):
         for line in f:
             if line.startswith(b">"):
                 lump_pids.add(int(line.rsplit(b"\t", 1)[1]))
-    log("kernels == plain on the card: every file after each of steps 1-4 "
-        "({} files after filter-stoptags); do-partition's .part sha256 {}; "
+    log("phase 10 ({} files after filter-stoptags): do-partition's .part "
+        "sha256 {}; "
         "{} stop tags (initial {}); the lump: {} reads in {} ({} groups), "
         "{} partitions before the filter (the largest {} reads), {} after "
         "it (the largest {} reads), {} filtered reads kept; sizes {}".format(
@@ -3372,7 +3393,7 @@ def run_knots(card, dev, tmp, seed):
             max(before[p] for p in lump_pids), len(after),
             max(after.values()) if after else 0, sum(after.values()),
             json.dumps(got["sizes"])))
-    log("phase 10: {:.1f} s with its plain runs and checks [{}]".format(
+    log("phase 10: {:.1f} s with its checks [{}]".format(
         time.perf_counter() - t_phase, card))
     return launches
 
@@ -4342,6 +4363,321 @@ def run_sharded(card, dev, tmp, reads_fa, ct):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: slice 15, the bin-sharded table
+# ---------------------------------------------------------------------------
+
+
+def edge_keys(spec, bounds, n, seed):
+    """Keys whose bin in one table is each piece's first and last bin and
+    the last table's last bin (one key a bin, in the table holding it; the
+    last piece ends at the spare bin, which no key reaches), as an int64
+    tensor of at most n keys on the CPU."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in [b for lo, hi in bounds for b in (lo, hi - 1)] + \
+            [spec.total_bins - 1]:
+        for p, off in zip(spec.tablesizes, spec.bin_offsets):
+            if off <= g < off + p:
+                # below 2**64 for any table of fewer than 2**34 bins
+                out.append((g - off) + p * int(rng.integers(1, 1 << 30)))
+    out = np.array(out[:n], np.uint64)
+    return torch.from_numpy(out.view(np.int64))
+
+
+def check_binshard_kernels(seed, dev, reads_fa, ct, rec):
+    """Phase 14 (a): K18, K19 and K20 against their plain versions on the
+    card, bit for bit, on each of BINSHARD_PIECES pieces of the phase-4
+    .ct with the first 2**23-lane chunk of the phase-4 file (lane index
+    as first position, as add_lanes gives them; edge keys first), with
+    CUDA-event times of piece 0 and the bytes-once bound."""
+    import torch
+
+    from khmer_tpu_torch import Countgraph, kernels
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.parallel import make_mesh
+
+    log("phase 14 (a): K18, K19 and K20 on the first 2**23-lane chunk of "
+        "the phase-4 file (edge keys first) on each of {} pieces of the "
+        "phase-4 .ct".format(BINSHARD_PIECES))
+    (keys, wgts, firsts), _ = shard_lanes(reads_fa, dev)
+    st = Countgraph.load(ct, device=dev).storage
+    lay = st.shard_table(make_mesh([dev] * BINSHARD_PIECES))
+    spec = st.spec
+    edges = edge_keys(spec, lay.bounds, keys.numel(), seed).to(dev)
+    keys[:edges.numel()] = edges
+    wgts[:edges.numel()] = 1
+    n, T = keys.numel(), spec.n_tables
+    live = (keys != -1) & (wgts != 0)
+    cap = n
+    err = dict.fromkeys(("owned_claims", "owned_add", "owned_get"), 0)
+    edge_hits = 0
+    for j, (piece, lo, geom) in enumerate(lay.parts()):
+        out = {}
+        for side, fns in (("kernel", kernels), ("plain", plain)):
+            p = piece.clone()
+            flags = torch.zeros(n, dtype=torch.int32, device=dev)
+            cand = torch.zeros(cap, dtype=torch.int64, device=dev)
+            count = torch.zeros(1, dtype=torch.int32, device=dev)
+            fns.owned_claims(keys, wgts, firsts, p, lo, *geom, flags, False,
+                             cand, count)
+            m = int(count.item())
+            cands = torch.sort(cand[:min(m, cap)]).values
+            same = torch.equal(p, piece)
+            fns.owned_add(keys, wgts, p, lo, *geom)
+            got = fns.owned_get(keys, p, lo, *geom)
+            out[side] = (flags, cands, m, same, p, got)
+            del p
+        (kf, kc, km, ks, kp, kg), (pf, pc, pm, ps, pp, pg) = \
+            out["kernel"], out["plain"]
+        e18 = max(max_abs_err(kf, pf), max_abs_err(kc, pc), abs(km - pm),
+                  0 if ks and ps else 1)
+        err["owned_claims"] = max(err["owned_claims"], e18)
+        err["owned_add"] = max(err["owned_add"], max_abs_err(kp, pp))
+        err["owned_get"] = max(err["owned_get"], max_abs_err(kg, pg))
+        b, own = plain._owned(keys[:edges.numel()], piece, lo, *geom[:2])
+        edge_hits += int((own & ((b == 0) | (b == piece.numel() - 1) |
+                                 (b + lo == spec.total_bins - 1))).sum())
+        log("piece {} [{}, {}): flags {} won, {} candidates; K18 err {}, "
+            "K19 {}, K20 {}".format(
+                j, lo, lo + piece.numel(), int(kf.sum()), km, e18,
+                max_abs_err(kp, pp), max_abs_err(kg, pg)))
+        del out, kf, kc, kp, kg, pf, pc, pp, pg
+    if edge_hits < 2 * BINSHARD_PIECES:
+        fail("phase 14 (a): the edge keys hit {} edge bins".format(
+            edge_hits))
+    piece, lo, geom = lay.parts()[0]
+    _, own = plain._owned(keys, piece, lo, *geom[:2])
+    owned_all = int(own.sum())
+    owned = int((own & live[None, :]).sum())
+    del own
+    flags = torch.zeros(n, dtype=torch.int32, device=dev)
+    cand = torch.zeros(cap, dtype=torch.int64, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    p = piece.clone()
+    times = {}
+    for side, fns, reps in (("kernel", kernels, 10), ("plain", plain, 3)):
+        times[side] = (
+            cuda_ms(lambda: fns.owned_claims(keys, wgts, firsts, p, lo,
+                                             *geom, flags, False, cand,
+                                             count), reps),
+            cuda_ms(lambda: fns.owned_add(keys, wgts, p, lo, *geom), reps),
+            cuda_ms(lambda: fns.owned_get(keys, p, lo, *geom), reps))
+    del p
+    # bytes once: the lanes in (key, weight, first), the flags out and
+    # each owned bin of a live lane in the claims and the piece (K18); the
+    # lanes and each owned bin in and out (K19); the keys, each owned bin
+    # and the minima out (K20)
+    nbytes = (16 * n + 4 * n + 8 * owned, 12 * n + 8 * owned,
+              8 * n + 4 * owned_all + 4 * n)
+    for i, name in enumerate(("owned_claims", "owned_add", "owned_get")):
+        record_kernel(rec, name, err[name], times["kernel"][i],
+                      times["plain"][i], nbytes[i], lanes=n,
+                      pieces=BINSHARD_PIECES,
+                      piece_bins=[hi - lo for lo, hi in lay.bounds],
+                      owned_bins=owned if i < 2 else owned_all)
+    del st, lay, keys, wgts, firsts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def binshard_countgraph(dev, shards=BINSHARD_PIECES):
+    """A -k 20 -N 4 -x 1e8 Countgraph with bigcount on the card, its table
+    cut into `shards` pieces of the card (0: whole)."""
+    from khmer_tpu_torch import Countgraph
+    from khmer_tpu_torch.parallel import make_mesh
+
+    g = Countgraph(K, TABLE_SIZE, 4, device=dev)
+    g.set_use_bigcount(True)
+    lay = g.storage.shard_table(make_mesh([dev] * shards)) if shards \
+        else None
+    return g, lay
+
+
+def saved_bytes(g, path):
+    g.save(path)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def run_binshard(card, dev, tmp, reads_fa, ct):
+    """Phase 14 (b)-(d): the bin-sharded Countgraph's consume of the
+    phase-4 file against phase 4's serial table (its timed .ct), the
+    deferred counter on a whole table, and the 4-piece Nodegraph's
+    tagging and partitions against phase 7's graph.  Returns the path's
+    launches, (b)'s and (d)'s."""
+    import torch
+
+    from khmer_tpu_torch import Countgraph, Nodegraph, SubsetPartition
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.ops import deferred
+    from khmer_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    with open(ct + ".info") as f:
+        ct_unique = int([ln for ln in f if ln.startswith(
+            "Total number of unique k-mers:")][0].split(":")[1])
+    timed_ct = os.path.join(tmp, "timed.ct")
+    with open(timed_ct, "rb") as f:
+        want = f.read()
+    serial = Countgraph.load(timed_ct, device=dev)
+    want_raw, want_occ = serial.storage.raw_bytes(), serial.n_occupied()
+    del serial
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g, lay = binshard_countgraph(dev)
+    n_reads, n_cons = g.consume_seqfile(reads_fa)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = saved_bytes(g, os.path.join(tmp, "binshard.ct"))
+    if got != want:
+        fail("the bin-sharded consume's .ct differs from phase 4's")
+    if not np.array_equal(g.storage.raw_bytes(), want_raw) or \
+            g.n_occupied() != want_occ or g.n_unique_kmers() != ct_unique:
+        fail("the bin-sharded consume's raw bytes, n_occupied {} or "
+             "n_unique {} differ from phase 4's ({}, {})".format(
+                 g.n_occupied(), g.n_unique_kmers(), want_occ, ct_unique))
+    # the consume, its save and the reads
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in ("owned_claims", "owned_add", "combine_lanes",
+                           "hash2bit_canonical") if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the bin-sharded consume: {}".format(
+            missing))
+    log("phase 14 (b): shard_table over {} shards of {} ({}), then "
+        "consume_seqfile of the phase-4 file ({} reads, {} k-mers): .ct "
+        "(bigcount section included), raw bytes, n_occupied {} and "
+        "n_unique {} == phase 4's serial table; wall {:.3f} s ({:.2f} "
+        "Mbases/s); piece bytes {}; peak device memory {} bytes = {:.3f} "
+        "GiB ({} held before) [{}]".format(
+            BINSHARD_PIECES, dev, lay, n_reads, n_cons, want_occ, ct_unique,
+            wall, n_reads * 100 / wall / 1e6,
+            [p.numel() * 4 for p in lay.pieces], peak, peak / 2 ** 30, held,
+            card))
+    log("phase 14 (b) launches: {}".format(json.dumps(launches)))
+    del g, lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    deferred.reset_stage_times()
+    deferred.enable_timing(True)
+    try:
+        t0 = time.perf_counter()
+        binshard_countgraph(dev)[0].consume_seqfile(reads_fa)
+        t_timed = time.perf_counter() - t0
+    finally:
+        deferred.enable_timing(False)
+    log("phase 14 stage ms (each stage synchronised; wall {:.3f} s): {} "
+        "[{}]".format(t_timed, json.dumps(
+            {k: round(v * 1e3, 3) for k, v in deferred.STAGE_TIMES.items()}),
+            card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    device_share("bin-sharded consume",
+                 lambda: binshard_countgraph(dev)[0].consume_seqfile(
+                     reads_fa), card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with mock.patch.multiple(kernels, **{name: getattr(plain, name)
+                                         for name in kernels.KERNELS}):
+        t0 = time.perf_counter()
+        pg = binshard_countgraph(dev)[0]
+        pg.consume_seqfile(reads_fa)
+        sync(dev)
+        t_plain = time.perf_counter() - t0
+        if saved_bytes(pg, os.path.join(tmp, "binshard_plain.ct")) != want:
+            fail("the bin-sharded consume through the plain versions "
+                 "differs")
+    log("phase 14 plain-version run: the same .ct; wall {:.3f} s [{}]"
+        .format(t_plain, card))
+    del pg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the deferred counter on the whole table
+    wg = binshard_countgraph(dev, shards=0)[0]
+    sync(dev)
+    t0 = time.perf_counter()
+    wg._consume_deferred(reads_fa)
+    sync(dev)
+    t_whole = time.perf_counter() - t0
+    if saved_bytes(wg, os.path.join(tmp, "deferred.ct")) != want or \
+            wg.n_unique_kmers() != ct_unique:
+        fail("the deferred counter on a whole table differs from phase 4's")
+    log("phase 14 (c): DeferredCounter on the whole table: the same .ct "
+        "and n_unique; wall {:.3f} s [{}]".format(t_whole, card))
+    del wg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the 4-piece Nodegraph against phase 7's graph
+    base = os.path.join(tmp, "p7", "kernels", "g")
+    ng = Nodegraph.load(base, device=dev)
+    ng.load_tagset(base + ".tagset")
+    t0 = time.perf_counter()
+    whole_raw = ng.storage.raw_bytes()
+    t_wraw = time.perf_counter() - t0
+    mesh = make_mesh([dev] * BINSHARD_PIECES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sg = Nodegraph(PARTITION_K, TABLE_SIZE, 4, device=dev)
+    sg.storage.shard_table(mesh)
+    sg.consume_seqfile_and_tag(os.path.join(tmp, "p7", "reads.fa"))
+    sync(dev)
+    t_tag = time.perf_counter() - t0
+    # the save's stream, packed a piece at a time on the card (K14, bit
+    # kind), against the whole graph's; raw_bytes returns host bytes
+    t0 = time.perf_counter()
+    sharded_raw = sg.storage.raw_bytes()
+    t_sraw = time.perf_counter() - t0
+    if sg.all_tags != ng.all_tags or not np.array_equal(sharded_raw,
+                                                        whole_raw):
+        fail("the 4-piece Nodegraph's tags or bytes differ from phase 7's")
+    del sharded_raw, whole_raw
+    seeds = sorted(ng.all_tags)[:3]
+    for seed in seeds:
+        a = SubsetPartition(ng).find_all_tags(seed).tagged_kmers
+        b = SubsetPartition(sg).find_all_tags(seed).tagged_kmers
+        if set(a) != set(b):
+            fail("find_all_tags differs on the 4-piece Nodegraph")
+    t0 = time.perf_counter()
+    meshed = SubsetPartition(sg)
+    meshed.do_partition_device(mesh=mesh)
+    sync(dev)
+    t_part = time.perf_counter() - t0
+    for name in SOURCES:
+        if name in kernels.LAUNCHES:
+            launches[name] = launches.get(name, 0) + kernels.LAUNCHES[name]
+    single = SubsetPartition(ng)
+    single.do_partition_device()
+    if partition_sets(meshed) != partition_sets(single):
+        fail("the 4-piece Nodegraph's partitions differ from phase 7's")
+    missing = [k for k in SLICE15_PATH if launches[k] == 0]
+    if missing:
+        fail("kernels not launched by the bin-sharded path: {}".format(
+            missing))
+    log("phase 14 (d): a {}-piece Nodegraph (-k {} -N 4 -x 1e8): "
+        "consume_seqfile_and_tag of phase 7's reads {:.3f} s, {} tags and "
+        "the raw bytes == phase 7's graph (raw_bytes {:.4f} s a piece at "
+        "a time, the whole graph's {:.4f} s); find_all_tags from {} seeds "
+        "equal; do_partition_device(mesh) {:.3f} s, {} partitions == the "
+        "whole graph's [{}]".format(
+            BINSHARD_PIECES, PARTITION_K, t_tag, len(sg.all_tags), t_sraw,
+            t_wraw, len(seeds), t_part, len(partition_sets(meshed)), card))
+    log("phase 14 launches ((b) and (d)): {}".format(json.dumps(
+        {k: launches[k] for k in SLICE15_PATH})))
+    del ng, sg, meshed, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 14: {:.1f} s".format(time.perf_counter() - t_phase))
+    return launches
+
+
 def _u64_numpy(t):
     return t.cpu().numpy().view(np.uint64)
 
@@ -4397,6 +4733,8 @@ def main():
         run_qf(card, dev, tmp, pairs_fa, args.seed)
         check_shard_kernels(args.seed, dev, reads_fa, ct, rec, star)
         slice7a = run_sharded(card, dev, tmp, reads_fa, ct)
+        check_binshard_kernels(args.seed, dev, reads_fa, ct, rec)
+        slice15 = run_binshard(card, dev, tmp, reads_fa, ct)
     # each kernel's launches by the path that runs it: slice 1's by the
     # main path (phase 4), slice 2's by the phase-5 path, K8 and K9 by the
     # murmur path (phase 6), which also gives K5's murmur launches, K10 by
@@ -4417,6 +4755,9 @@ def main():
         "cc_jump")})
     launches["claim_news"] = slice7a["claim_scatter"] + \
         slice7a["claim_count"]
+    # slice 15's by the bin-sharded path (phase 14 (b) and (d))
+    launches.update({k: slice15[k] for k in ("owned_claims", "owned_add",
+                                             "owned_get")})
     rec["row_counts"]["murmur_launches"] = murmur["row_counts_murmur"]
 
     from khmer_tpu_torch.kernels import (CC_BLOCK, CC_KERNELS_PER_ROUND,

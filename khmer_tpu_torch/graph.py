@@ -17,7 +17,7 @@ those flags, as in khmer_tpu.
 import numpy as np
 import torch
 
-from khmer_tpu_torch import _u64, kernels, traversal
+from khmer_tpu_torch import _u64, traversal
 from khmer_tpu_torch._config import DEFAULT_TAG_DENSITY
 from khmer_tpu_torch.hashset import HashSet
 from khmer_tpu_torch.hashtable import Hashtable, _pad_rows
@@ -303,11 +303,10 @@ class Hashgraph(Hashtable):
         if not cand.numel():
             return is_new
         h = flat[cand]
-        sizes, offsets, recips = st._geom
+        sizes, offsets, _ = st._geom
         n_t = sizes.numel()
-        zero = torch.stack([kernels.sketch_get(
-            st.table, h, sizes[t:t + 1], offsets[t:t + 1], recips[t:t + 1],
-            1).to(torch.int32) == 0 for t in range(n_t)])
+        zero = torch.stack([st.get_lanes(h, 1, slice(t, t + 1)).to(
+            torch.int32) == 0 for t in range(n_t)])
         gid = torch.stack([_u64.umod(h, sizes[t]) + offsets[t]
                            for t in range(n_t)])
         # the 0 bins two or more candidates share

@@ -35,6 +35,12 @@ QFCounttable keeps khmer_tpu's design: the filter is a host-exact sorted
 reads with K8.  Its batch steps for the streaming filters take the
 decisions with K6 / K7 over the batch's distinct filter keys, so that
 they equal the reference's read-by-read loop.
+
+A bin-sharded table (Storage.shard_table) consumes through khmer_tpu's
+deferred counter (ops/deferred.py: K1, K8 or K11 a chunk, K16 combines,
+the K18/K19 flush on every piece), and its row counts are K1 (K8, K11)
+and the pieces' reads (K20).  The histogram (K4) and the streaming
+filters (K6, K7) refuse it (ROADMAP Queue 2 item 4).
 """
 
 import math
@@ -523,12 +529,43 @@ class Hashtable:
         Hashtable::consume_seqfile, src/oxli/hashtable.cc:133-158.  With
         two or more devices for the table's device
         (parallel.sharded.default_devices) the consume runs sharded over
-        them (_use_sharded, khmer_tpu's rule)."""
+        them (_use_sharded, khmer_tpu's rule).  A bin-sharded table
+        (Storage.shard_table) consumes through the deferred counter
+        (_consume_deferred)."""
+        if getattr(self.storage, "shards", None) is not None:
+            return self._consume_deferred(parser_or_filename, chunk)
         if self._use_sharded(parser_or_filename):
             return self._consume_sharded(parser_or_filename, chunk)
         stats = _StreamStats()
         for codes, mask in self._chunks(parser_or_filename, chunk, stats):
             self.storage.add_lanes(*self._chunk_lanes(codes, mask))
+        return stats.n_reads, stats.n_consumed
+
+    def _consume_deferred(self, parser_or_filename, chunk=CHUNK,
+                          filters=None):
+        """consume_seqfile through khmer_tpu's DeferredCounter
+        (hashtable.py:1474-1482, and :1333-1338 filtered): each chunk's K1
+        (K8, K11) lanes, through K12 when `filters` (band_mask_weights'
+        keywords) are given, append at their stream positions; finish()
+        combines them (K16) and flushes each distinct k-mer into the table
+        once (K18, K19 on every piece of a bin-sharded table).  The same
+        table and n_unique as K2 a chunk; its bigcount candidates are
+        khmer_tpu's (ROADMAP Queue 3 has where K2's differ).  Returns
+        (n_reads, n_consumed), or with filters (n_reads, the k-mers that
+        passed)."""
+        from khmer_tpu_torch.ops.deferred import DeferredCounter
+
+        counter = DeferredCounter(self.storage, chunk)
+        stats = _StreamStats()
+        total = torch.zeros(1, dtype=torch.int64, device=self.device)
+        for codes, mask in self._chunks(parser_or_filename, chunk, stats):
+            h, w = self._chunk_lanes(codes, mask)
+            if filters is not None:
+                w = kernels.band_mask_weights(h, w, total, **filters)
+            counter.append(h, w)
+        counter.finish()
+        if filters is not None:
+            return stats.n_reads, int(total.item())
         return stats.n_reads, stats.n_consumed
 
     def _use_sharded(self, parser_or_filename=None):
@@ -537,13 +574,17 @@ class Hashtable:
         KHMER_TPU_SHARDED=0/off/serial/false, for a table without a
         spec (the quotient filter) or with fewer than two devices; always
         with KHMER_TPU_SHARDED=1/on/force/always/true; else (auto) for a
-        file of at least KHMER_TPU_SHARD_MIN_MB (64) megabytes."""
+        file of at least KHMER_TPU_SHARD_MIN_MB (64) megabytes.  It gives
+        way for a bin-sharded table, which consumes through the deferred
+        counter; both give the same table and n_unique."""
         from khmer_tpu_torch.parallel import sharded
 
         mode = os.environ.get("KHMER_TPU_SHARDED", "auto").lower()
         if mode in ("0", "off", "serial", "false"):
             return False
         if getattr(self.storage, "spec", None) is None:
+            return False
+        if self.storage.shards is not None:
             return False
         if len(sharded.default_devices(self.device)) < 2:
             return False
@@ -608,7 +649,8 @@ class Hashtable:
         table's hashes, at its storage kind's cap and without a loaded
         bigcount map, as khmer_tpu reads it.  Returns (n_reads, the k-mers
         that passed the filters; hashtable.cc:181-191), the total read
-        once at the end."""
+        once at the end.  A bin-sharded table adds the passed lanes
+        through the deferred counter; a bin-sharded mask raises."""
         if isinstance(parser_or_filename, str):
             # khmer_tpu opens the input before it checks the band
             open(parser_or_filename, "rb").close()
@@ -617,22 +659,32 @@ class Hashtable:
             filters["band"] = compute_band_interval(num_bands, band)
         if mask is not None:
             ms = mask.storage
+            ms.refuse_shards("a mask")
             filters.update(zip(("table", "sizes", "offsets", "recips"),
                                (ms.table, *ms._geom)))
             filters.update(cap=ms.read_cap(), threshold=_as_u32(threshold),
                            consume_masked=consume_masked)
+        if getattr(self.storage, "shards", None) is not None:
+            n_reads, passed = self._consume_deferred(parser_or_filename,
+                                                     chunk, filters)
+            self._refuse_empty(parser_or_filename, n_reads)
+            return n_reads, passed
         stats = _StreamStats()
         total = torch.zeros(1, dtype=torch.int64, device=self.device)
         for codes, m in self._chunks(parser_or_filename, chunk, stats):
             h, w = self._chunk_lanes(codes, m)
             self.storage.add_lanes(
                 h, kernels.band_mask_weights(h, w, total, **filters))
-        if isinstance(parser_or_filename, str) and not stats.n_reads:
+        self._refuse_empty(parser_or_filename, stats.n_reads)
+        return stats.n_reads, int(total.item())
+
+    @staticmethod
+    def _refuse_empty(parser_or_filename, n_reads):
+        if isinstance(parser_or_filename, str) and not n_reads:
             # khmer_tpu reads these through its parser, which refuses a
             # file without a record (read_parsers.cc:258)
             raise OSError("{} does not contain any sequences!".format(
                 parser_or_filename))
-        return stats.n_reads, int(total.item())
 
     def consume_seqfile_with_mask(self, parser_or_filename, mask,
                                   threshold=0, consume_masked=False,
@@ -682,10 +734,18 @@ class Hashtable:
         """K5 over the sequences padded as khmer_tpu pads them: (uint16
         counts [B, W], int64 hashes [B, W] or None, bool valid [B, W]) on
         the device, read without the loaded bigcount overlay, as
-        khmer_tpu's row functions read them (_read_spec)."""
+        khmer_tpu's row functions read them (_read_spec).  A bin-sharded
+        table reads K1's (K8's, K11's) hashes of the rows from its pieces
+        (K20)."""
         codes, lengths = _pad_rows(sequences, self._ksize,
                                    encode=self._encode)
         st = self.storage
+        if st.shards is not None:
+            h, valid = self._row_hasher()(self._upload(codes),
+                                          self._upload(lengths), self._ksize)
+            counts = st.get_lanes(h.reshape(-1)).reshape(h.shape)
+            counts = (counts.to(torch.int32) * valid).to(torch.uint16)
+            return counts, h if want_hashes else None, valid
         return row_hashes_counts(self._upload(codes), self._upload(lengths),
                                  self._ksize, st._geom, st.table,
                                  st.read_cap(), want_hashes, self.hash_kind)
@@ -827,12 +887,16 @@ class Hashtable:
                                    encode=self._encode)
         realarr = np.zeros(codes.shape[0], np.uint8)
         realarr[:real.size] = real
-        hash_rows = {"murmur": kernels.murmur_hashes,
-                     "cyclic": kernels.cyclic_hashes}.get(self.hash_kind,
-                                                          kmer_hashes_2bit)
-        h, valid = hash_rows(self._upload(codes), self._upload(lengths),
-                             self._ksize)
+        h, valid = self._row_hasher()(self._upload(codes),
+                                      self._upload(lengths), self._ksize)
         return h, valid, self._upload(realarr)
+
+    def _row_hasher(self):
+        """The hash of padded rows for this table's hash: K1 (through
+        kmer_hashes_2bit), K8 or K11, each returning (hashes, valid)."""
+        return {"murmur": kernels.murmur_hashes,
+                "cyclic": kernels.cyclic_hashes}.get(self.hash_kind,
+                                                     kmer_hashes_2bit)
 
     def _chain_batch(self, seq_pairs, chain):
         """One batch step of normalize-by-median or trim-low-abund
@@ -843,6 +907,7 @@ class Hashtable:
         flags, a bool [B] of the bundles whose k-mers it tallied, and the
         tally.  The tally then goes into the sketch in one K2 call
         (_flush_tally).  Returns what chain returned."""
+        self.storage.refuse_shards("the streaming filters' batch step")
         h, valid, real = self._bundle_hashes(seq_pairs)
         ids, keys = _batch_ids(h, valid)
         del h
@@ -934,6 +999,8 @@ class Hashtable:
           OVERLAY_CHUNK bases of the stream, khmer_tpu's CHUNK, and
           saturated counts are overlaid from the map (_abund_overlay).
         """
+        self.storage.refuse_shards("the abundance histogram")
+        tracking.storage.refuse_shards("the abundance histogram")
         hist = torch.zeros(MAX_BIGCOUNT + 1, dtype=torch.int64,
                            device=self.device)
         if self.storage.get_use_bigcount() and self.storage.bigcounts:

@@ -27,7 +27,7 @@ KERNELS = ("hash2bit_canonical", "sketch_update", "sketch_get",
            "cyclic_hashes", "band_mask_weights", "count_nonzero",
            "pack_oxli_bytes", "band_route", "combine_lanes",
            "claim_scatter", "claim_count", "sketch_get_tables", "cc_relax",
-           "cc_jump")
+           "cc_jump", "owned_claims", "owned_add", "owned_get")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # row_counts' launches by hash kind (its 2-bit, murmur and cyclic variants)
 ROW_COUNTS_BY_HASH = {"2bit": 0, "murmur": 0, "cyclic": 0}
@@ -38,10 +38,11 @@ CYCLIC_MAX_K = 255  # csrc/cyclic.cuh kMaxK
 # hot and finish; cc_rounds launches CC_KERNELS_PER_ROUND a round;
 # band_route counts, scans and places; combine_lanes inserts and
 # compacts; cc_relax relaxes twice and cc_jump jumps twice; K17
-# (claim_news) is claim_scatter and claim_count, a launch each
+# (claim_news) is claim_scatter and claim_count, a launch each; K18
+# (owned_claims) claims, then flags
 KERNELS_PER_CALL = dict(dict.fromkeys(KERNELS, 1), sketch_update=10,
                         band_route=3, combine_lanes=2, cc_relax=2,
-                        cc_jump=2)
+                        cc_jump=2, owned_claims=2)
 CC_KERNELS_PER_ROUND = 4  # csrc/cc.cu: two relaxes, two pointer jumps
 CC_BLOCK = 8  # rounds a call of connected_components (khmer_tpu's block)
 MAX_CC = (1 << 31) - 1  # nodes and edges: K10 indexes labels as int32
@@ -754,6 +755,98 @@ def sketch_get_tables(table, hashes, sizes, offsets, recips):
         _launch("sketch_get_tables", dev, table.data_ptr(), hashes.data_ptr(),
                 n, sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
                 recips.data_ptr(), out.data_ptr())
+    return out
+
+
+def _check_piece(name, keys, piece, lo, sizes, offsets, recips):
+    """A piece of a bin-sharded table (int32 [len], bins [lo, lo + len))
+    with the whole table's geometry, on the keys' device."""
+    _check_geometry(piece, sizes, offsets, recips)
+    if piece.dim() != 1 or lo < 0:
+        raise ValueError("{}: need a 1-D piece and lo >= 0".format(name))
+    if piece.device != keys.device:
+        raise ValueError("{}: piece on {}, lanes on {}".format(
+            name, piece.device, keys.device))
+
+
+def owned_claims(keys, wgts, firsts, piece, lo, sizes, offsets, recips,
+                 flags, virgin, cand=None, cand_count=None):
+    """K18: the claim-rule flags of (int64 key, int32 total, int32 first)
+    lanes [n] on the piece of a bin-sharded table that holds bins [lo, lo
+    + piece.numel()) (int32 bit patterns of u32; sizes, offsets and
+    recips the whole table's).  flags (int32 [n]) is set to 1, in place,
+    where for some table t whose bin g = off_t + h % p_t the piece owns,
+    the live lane (key not 2**64 - 1, total not 0) holds the least first
+    position (u32) of the live lanes in that bin and, unless virgin (the
+    piece known all zero), piece[g - lo] is 0; it is never cleared.
+    With cand (int64 [cap]) and cand_count (int32 [1]) the keys of the
+    live lanes whose table-0 bin is owned and whose (virgin ? total :
+    bin + total) exceeds 255 (u32) are appended, in no specified order,
+    and cand_count gains their number (it may pass cap).  Reads the piece
+    and leaves it as it was.  See csrc/binshard.cu."""
+    dev, n = _check_lanes("owned_claims", keys, wgts, firsts)
+    _check_piece("owned_claims", keys, piece, lo, sizes, offsets, recips)
+    _check("flags", flags, torch.int32, dev)
+    if flags.shape != keys.shape:
+        raise ValueError("owned_claims: need flags [n]")
+    if cand is not None:
+        _check("cand", cand, torch.int64, dev)
+        _check("cand_count", cand_count, torch.int32, dev)
+    if dev.type != "cuda":
+        return plain.owned_claims(keys, wgts, firsts, piece, lo, sizes,
+                                  offsets, recips, flags, virgin, cand,
+                                  cand_count)
+    if n and piece.numel():
+        claim = torch.full_like(piece, -1)
+        _launch("owned_claims", dev, keys.data_ptr(), wgts.data_ptr(),
+                firsts.data_ptr(), n, sizes.numel(), sizes.data_ptr(),
+                offsets.data_ptr(), recips.data_ptr(), piece.data_ptr(),
+                int(lo), piece.numel(), claim.data_ptr(), flags.data_ptr(),
+                int(bool(virgin)),
+                cand.data_ptr() if cand is not None else None,
+                cand.numel() if cand is not None else 0,
+                cand_count.data_ptr() if cand is not None else None)
+
+
+def owned_add(keys, wgts, piece, lo, sizes, offsets, recips):
+    """K19: piece[g - lo] += total (mod 2**32), in place, for every live
+    lane (int64 key not 2**64 - 1, int32 total not 0) and every table
+    whose bin g the piece (bins [lo, lo + piece.numel())) owns.  See
+    csrc/binshard.cu."""
+    dev = keys.device
+    _check("keys", keys, torch.int64, dev)
+    _check("weights", wgts, torch.int32, dev)
+    if keys.dim() != 1 or wgts.shape != keys.shape:
+        raise ValueError("owned_add: need keys and weights [n]")
+    _check_piece("owned_add", keys, piece, lo, sizes, offsets, recips)
+    if dev.type != "cuda":
+        return plain.owned_add(keys, wgts, piece, lo, sizes, offsets, recips)
+    if keys.numel() and piece.numel():
+        _launch("owned_add", dev, keys.data_ptr(), wgts.data_ptr(),
+                keys.numel(), sizes.numel(), sizes.data_ptr(),
+                offsets.data_ptr(), recips.data_ptr(), piece.data_ptr(),
+                int(lo), piece.numel())
+
+
+def owned_get(keys, piece, lo, sizes, offsets, recips):
+    """K20: for every int64 key [n], the unsigned min over the tables
+    whose bin g the piece (bins [lo, lo + piece.numel())) owns of
+    piece[g - lo], or 2**32 - 1 where it owns none: int32 [n] (u32
+    patterns), without the read cap; the mesh's unsigned min of every
+    piece's gives the whole table's min.  See csrc/binshard.cu."""
+    dev = keys.device
+    _check("keys", keys, torch.int64, dev)
+    if keys.dim() != 1:
+        raise ValueError("owned_get: need keys [n]")
+    _check_piece("owned_get", keys, piece, lo, sizes, offsets, recips)
+    if dev.type != "cuda":
+        return plain.owned_get(keys, piece, lo, sizes, offsets, recips)
+    out = torch.empty(keys.numel(), dtype=torch.int32, device=dev)
+    if keys.numel():
+        _launch("owned_get", dev, keys.data_ptr(), keys.numel(),
+                sizes.numel(), sizes.data_ptr(), offsets.data_ptr(),
+                recips.data_ptr(), piece.data_ptr(), int(lo), piece.numel(),
+                out.data_ptr())
     return out
 
 

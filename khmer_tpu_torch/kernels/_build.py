@@ -19,7 +19,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("hash2bit", "sketch", "abund", "rows", "chain", "murmur", "hll",
-           "cc", "cyclic", "filter", "save", "route", "combine", "claims")
+           "cc", "cyclic", "filter", "save", "route", "combine", "claims",
+           "binshard")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -56,6 +57,10 @@ SIGNATURES = {
     "khmer_combine_lanes": (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _P),
     "khmer_claim_scatter": (_P, _P, _P, _LL, _I, _P, _P, _P, _P, _P),
     "khmer_claim_count": (_P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P),
+    "khmer_owned_claims": (_P, _P, _P, _LL, _I, _P, _P, _P, _P, _LL, _LL, _P,
+                           _P, _I, _P, _LL, _P, _P),
+    "khmer_owned_add": (_P, _P, _LL, _I, _P, _P, _P, _P, _LL, _LL, _P),
+    "khmer_owned_get": (_P, _LL, _I, _P, _P, _P, _P, _LL, _LL, _P, _P),
     "khmer_diginorm_chain": (_P, _P, _P, _P, _I, _I, _U, _P, _P, _P, _LL,
                              _P),
     "khmer_trim_chain": (_P, _P, _P, _P, _I, _I, _U, _U, _I, _U, _P, _P, _P,

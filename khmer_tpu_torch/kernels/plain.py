@@ -546,6 +546,71 @@ def sketch_get_tables(table, hashes, sizes, offsets, recips):
     return table[_bins(hashes, sizes, offsets)]
 
 
+def _owned(hashes, piece, lo, sizes, offsets):
+    """([T, n] bins of hashes less lo, [T, n] bool: the piece owns them),
+    the bins of the others clamped into the piece."""
+    b = _bins(hashes, sizes, offsets) - lo
+    own = (b >= 0) & (b < piece.numel())
+    return b.clamp(0, max(piece.numel() - 1, 0)), own
+
+
+def owned_claims(keys, wgts, firsts, piece, lo, sizes, offsets, recips,
+                 flags, virgin, cand=None, cand_count=None):
+    """K18 on the piece holding bins [lo, lo + piece.numel()): flags[i] =
+    1 (int32 [n], in place) where for some owned table t the live lane i
+    holds the least first position (u32) of all live lanes in its bin
+    and, unless virgin, the bin is 0; with cand, the keys of the live
+    lanes whose table-0 bin is owned and whose (virgin ? total : bin +
+    total) exceeds 255 (u32) go into cand in lane order, as many as fit,
+    and cand_count (int32 [1]) gains their number (recips unused)."""
+    live = (keys != SENTINEL) & (wgts != 0)
+    if not piece.numel():
+        return
+    b, own = _owned(keys, piece, lo, sizes, offsets)
+    own &= live[None, :]
+    f = firsts.expand_as(b)
+    claim = torch.full((piece.numel(),), -1, dtype=torch.int32,
+                       device=piece.device) ^ _FLIP32
+    claim.scatter_reduce_(0, b[own], f[own] ^ _FLIP32, "amin")
+    claim ^= _FLIP32
+    pre = piece[b]
+    win = own & (claim[b] == f)
+    if not virgin:
+        win &= pre == 0
+    flags[win.any(0)] = 1
+    if cand is not None:
+        base = _u64.u32(wgts) if virgin else \
+            (_u64.u32(pre[0]) + _u64.u32(wgts)) & 0xFFFFFFFF
+        crossed = keys[own[0] & (base > MAX_KCOUNT)]
+        m = min(crossed.numel(), cand.numel())
+        cand[:m] = crossed[:m]
+        cand_count += crossed.numel()
+
+
+def owned_add(keys, wgts, piece, lo, sizes, offsets, recips):
+    """K19: piece[g - lo] += total (mod 2**32) for every live lane (key
+    not SENTINEL, weight not 0) and every table whose bin g the piece
+    owns (recips unused)."""
+    if not piece.numel():
+        return
+    b, own = _owned(keys, piece, lo, sizes, offsets)
+    own &= ((keys != SENTINEL) & (wgts != 0))[None, :]
+    piece.index_add_(0, b[own], wgts.expand_as(b)[own])
+
+
+def owned_get(keys, piece, lo, sizes, offsets, recips):
+    """K20: the unsigned min over the tables whose bin the piece owns of
+    piece[g - lo], 2**32 - 1 where it owns none; int32 [n] (recips
+    unused)."""
+    out = torch.full((keys.numel(),), -1, dtype=torch.int32,
+                     device=keys.device)
+    if not piece.numel():
+        return out
+    b, own = _owned(keys, piece, lo, sizes, offsets)
+    vals = torch.where(own, piece[b] ^ _FLIP32, (-1) ^ _FLIP32)
+    return vals.amin(0) ^ _FLIP32
+
+
 def _cc_at(x, T):
     return x.clamp(max=T - 1)
 

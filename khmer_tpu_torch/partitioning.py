@@ -32,7 +32,7 @@ import struct
 import numpy as np
 import torch
 
-from khmer_tpu_torch import _u64, kernels
+from khmer_tpu_torch import _u64
 from khmer_tpu_torch.io.oxli_format import (OxliFileError,
                                             SAVED_FORMAT_VERSION,
                                             SAVED_SIGNATURE, SAVED_SUBSET)
@@ -897,16 +897,15 @@ class _KnotWalk:
 
     def _read_bins(self, new):
         """Read the bins of the k-mers `new` (sorted, distinct, none read
-        yet) in every table: K3 with the one table's geometry."""
+        yet) in every table: K3 with the one table's geometry (K20 on a
+        bin-sharded table)."""
         if not new.size:
             return
         st = self.store
         h = _u64.as_tensor(new, st.device)
-        sizes, offsets, recips = st._geom
-        vals = np.stack([kernels.sketch_get(
-            st.table, h, sizes[t:t + 1], offsets[t:t + 1],
-            recips[t:t + 1], 0xFFFF).cpu().numpy().astype(np.int64)
-            for t in range(self.sizes.size)])
+        vals = np.stack([st.get_lanes(h, 0xFFFF, slice(t, t + 1)).cpu()
+                         .numpy().astype(np.int64)
+                         for t in range(self.sizes.size)])
         gid = new[None, :] % self.sizes[:, None] + self.offsets[:, None]
         gids = np.union1d(self.gids, gid.ravel())
         remap = np.searchsorted(gids, self.gids)

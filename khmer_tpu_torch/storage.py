@@ -22,6 +22,19 @@ Every write to a table goes through its Storage and counts in
 `Storage.writes`, which keeps the host count snapshot (host_counts)
 coherent: the port writes tables in place, so the snapshot cannot tell a
 new table by its identity, as khmer_tpu's does.
+
+Storage.shard_table (khmer_tpu/storage.py:245-271) cuts the flat bin
+array into contiguous pieces, one on each shard of an in-process mesh
+(BinShards).  khmer_tpu then runs its kernels unchanged and XLA inserts
+the collectives; here every piece sees every lane and routes by bin
+owner with three kernels: a read is K20 (owned_get) on each piece and
+the mesh's unsigned min, an add the deferred counter's claim-rule flush
+(K18 owned_claims, then K19 owned_add; ops/deferred.py) with each
+lane's index as its first position, which gives K2's per-lane was-new
+flags.  The occupied count (K13), the save (K14) and the host snapshot
+go piece by piece, and no operation assembles the whole table on one
+device: what is not ported to the layout yet raises NotImplementedError
+(ROADMAP Queue 2 item 4).
 """
 
 import math
@@ -30,7 +43,7 @@ import os
 import numpy as np
 import torch
 
-from khmer_tpu_torch import _u64
+from khmer_tpu_torch import _u64, kernels
 from khmer_tpu_torch._config import MAX_BIGCOUNT, MAX_KCOUNT, resolve_device
 from khmer_tpu_torch.ops.sketch_ops import (
     BIGCOUNT_CAP,
@@ -44,12 +57,81 @@ from khmer_tpu_torch.ops.sketch_ops import (
     unpack_oxli_bytes,
 )
 
+# every inner piece edge of a bin-sharded table is a bin of a table whose
+# index in that table is a multiple of PIECE_ALIGN, or the table's end, so
+# that no byte of the OXLI stream (two bins a byte for the nibble kind,
+# eight for the bit kind, from each table's first bin) spans two pieces
+PIECE_ALIGN = 8
+# what raises on a bin-sharded table, and where the port queues it
+NOT_ON_SHARDS = "{} on a bin-sharded table is not ported yet (ROADMAP " \
+    "Queue 2 item 4)"
+
+
+def piece_bounds(spec, n_bins, n_pieces):
+    """[lo, hi) of n_pieces contiguous pieces of a flat table of n_bins
+    bins (spec's tables, then its spare bin): piece s ends near s + 1
+    n_pieces-ths of the bins, at the next PIECE_ALIGN edge of the table
+    that holds that bin.  A piece may be empty."""
+    cuts = [0]
+    for s in range(1, n_pieces):
+        g = max(cuts[-1], s * n_bins // n_pieces)
+        for size, off in zip(spec.tablesizes, spec.bin_offsets):
+            if off <= g < off + size:
+                g = min(off + -(-(g - off) // PIECE_ALIGN) * PIECE_ALIGN,
+                        off + size)
+                break
+        cuts.append(g)
+    cuts.append(n_bins)
+    return tuple(zip(cuts[:-1], cuts[1:]))
+
+
+class BinShards:
+    """The layout of a bin-sharded table (Storage.shard_table): its
+    n_bins flat bins cut into one contiguous piece for each shard of an
+    in-process parallel.comm.Mesh, in rank order (piece_bounds): piece s
+    holds bins bounds[s] = [lo, hi) on devices[s].  Shards may share a
+    device."""
+
+    def __init__(self, mesh, pieces, bounds, spec):
+        self.mesh = mesh
+        self.devices = mesh.devices
+        self.pieces = pieces
+        self.bounds = tuple(bounds)
+        self.n_bins = self.bounds[-1][1]
+        by_dev = {d: spec.geometry(d) for d in set(self.devices)}
+        self.geoms = [by_dev[d] for d in self.devices]
+
+    def parts(self):
+        """(piece, lo, geometry on the piece's device) of every piece."""
+        return [(p, lo, g) for p, (lo, _), g in zip(self.pieces, self.bounds,
+                                                    self.geoms)]
+
+    def __repr__(self):
+        return "BinShards({} bins in {} pieces: {})".format(
+            self.n_bins, len(self.pieces), ", ".join(
+                "{}: [{}, {})".format(d, lo, hi)
+                for d, (lo, hi) in zip(self.devices, self.bounds)))
+
+    def get(self, hashes, cap, tables=None):
+        """Counts of int64 hashes (on any device; returned there), the min
+        over the tables (only those of the slice `tables` when given) of
+        the bins, capped at cap: K20 on every piece and the mesh's
+        unsigned min; uint16."""
+        sel = slice(None) if tables is None else tables
+        mins = [kernels.owned_get(h, p, lo, *(x[sel] for x in g))
+                for h, (p, lo, g) in zip(self.mesh.replicate(hashes),
+                                         self.parts())]
+        m = self.mesh.all_reduce(mins, "umin32")[0].to(hashes.device)
+        return _u64.u32(m).clamp(max=cap).to(torch.uint16)
+
 
 class Storage:
     """Base class for device sketches."""
 
     kind = None
     supports_bigcount = False
+    # the layout of a bin-sharded table (shard_table), None when whole
+    shards = None
 
     def __init__(self, tablesizes, use_bigcount=False, device=None):
         tablesizes = tuple(int(t) for t in tablesizes)
@@ -82,10 +164,86 @@ class Storage:
     def get_tablesizes(self):
         return list(self.spec.tablesizes)
 
+    @property
+    def table(self):
+        """The flat table (int32 bit patterns of the u32 bins) on this
+        storage's device; a bin-sharded table has none."""
+        if self.shards is not None:
+            raise NotImplementedError(NOT_ON_SHARDS.format(
+                "reading the whole table on one device"))
+        return self._table
+
+    @table.setter
+    def table(self, bins):
+        self._table = bins
+
+    def refuse_shards(self, what):
+        """Raise NotImplementedError naming `what` when the table is
+        bin-sharded."""
+        if self.shards is not None:
+            raise NotImplementedError(NOT_ON_SHARDS.format(what))
+
+    def is_virgin(self):
+        """True while the table is known to be all zero: nothing has been
+        written or loaded since it was made."""
+        return self.writes == 0
+
+    def shard_table(self, mesh=None, axis="shard"):
+        """Cut the flat bin array into contiguous pieces over an
+        in-process mesh's shards (khmer_tpu/storage.py:245-271): piece s
+        goes to shard s's device and the whole-table tensor is dropped,
+        so each device holds about 1/S of the table.  mesh=None is
+        parallel.sharded.make_mesh(device=self.device): every CUDA
+        device, or the one CPU.  `axis` is khmer_tpu's and names no axis
+        here: the pieces follow the mesh's ranks.  Returns the layout
+        (BinShards: the devices and each piece's [lo, hi)).  Every result
+        equals the whole table's; what is not ported to the layout raises
+        NotImplementedError.  A mesh over a torch.distributed group
+        raises too: khmer_tpu's shard_table is one process's."""
+        del axis
+        from khmer_tpu_torch.parallel.sharded import make_mesh
+
+        if self.shards is not None:
+            raise ValueError("the table is bin-sharded already")
+        if mesh is None:
+            mesh = make_mesh(device=self.device)
+        if mesh.group is not None:
+            raise NotImplementedError(NOT_ON_SHARDS.format(
+                "a mesh over a process group"))
+        bounds = piece_bounds(self.spec, self._table.numel(),
+                              len(mesh.devices))
+        whole = self._table
+        self._table = None
+        if self.is_virgin():
+            whole = None  # all zero: make the pieces, copy nothing
+        pieces = []
+        for dev, (lo, hi) in zip(mesh.devices, bounds):
+            piece = torch.zeros(hi - lo, dtype=torch.int32, device=dev)
+            if whole is not None:
+                piece.copy_(whole[lo:hi])
+            pieces.append(piece)
+        del whole
+        self.shards = BinShards(mesh, pieces, bounds, self.spec)
+        return self.shards
+
+    def flush_target(self):
+        """What ops.deferred.flush_table_ops flushes into: the layout of
+        a bin-sharded table, or the flat table."""
+        return self._table if self.shards is None else self.shards
+
     def n_occupied(self):
         if self._loaded_occupied is not None:
             return self._loaded_occupied
-        return occupied_bins(self.spec, self.table)
+        if self.shards is None:
+            return occupied_bins(self.spec, self._table)
+        # table 0's nonzero bins, K13 a piece
+        size0 = self.spec.tablesizes[0]
+        total = 0
+        for piece, lo, _ in self.shards.parts():
+            end = min(piece.numel(), size0 - lo)
+            if end > 0:
+                total += int(kernels.count_nonzero(piece, 0, end).item())
+        return total
 
     def n_unique_kmers(self):
         return int(self._n_unique.item())
@@ -110,7 +268,7 @@ class Storage:
 
     def _counts_over_kcount(self, hashes):
         """The hashes (int64 tensor) whose uncapped count exceeds 255."""
-        counts = sketch_get(self._geom, self.table, hashes, BIGCOUNT_CAP)
+        counts = self.get_lanes(hashes, BIGCOUNT_CAP)
         return _u64.to_numpy(hashes[counts.to(torch.int32) > MAX_KCOUNT])
 
     def resolved_bigcounts(self):
@@ -121,9 +279,8 @@ class Storage:
         if self.bigcount_candidates:
             cand = np.fromiter(self.bigcount_candidates, np.uint64,
                                len(self.bigcount_candidates))
-            counts = sketch_get(self._geom, self.table,
-                                _u64.as_tensor(cand, self.device),
-                                BIGCOUNT_CAP).cpu().numpy()
+            counts = self.get_lanes(_u64.as_tensor(cand, self.device),
+                                    BIGCOUNT_CAP).cpu().numpy()
             for h, c in zip(cand, counts):
                 if c > MAX_KCOUNT:
                     out[int(h)] = min(int(c), MAX_BIGCOUNT)
@@ -151,9 +308,13 @@ class Storage:
         (khmer_tpu's batch-step flush tracks none)."""
         track = self.kind == "byte" and self._use_bigcount and \
             track_bigcount
-        is_new, found, overflowed = sketch_update(
-            self._geom, self.table, self._n_unique, hashes,
-            weights, track_bigcount=track)
+        if self.shards is None:
+            is_new, found, overflowed = sketch_update(
+                self._geom, self._table, self._n_unique, hashes,
+                weights, track_bigcount=track)
+        else:
+            is_new = self._add_to_shards(hashes, weights)
+            found, overflowed = (), True
         self._loaded_occupied = None
         self._mirror_host_add(hashes, weights)
         if track:
@@ -167,6 +328,21 @@ class Storage:
                 self.bigcount_candidates.update(
                     int(x) for x in self._counts_over_kcount(live))
         return is_new
+
+    def _add_to_shards(self, hashes, weights):
+        """add_lanes on a bin-sharded table: the deferred counter's flush
+        (K18, K19 on every piece) with each lane's index as its first
+        position, whose per-lane flags are K2's was-new flags.  Its
+        bigcount candidates are those of the flush's distinct-lane rule,
+        so add_lanes takes them from the batch instead."""
+        from khmer_tpu_torch.ops.deferred import flush_lanes
+
+        n = hashes.numel()
+        firsts = torch.arange(n, dtype=torch.int32, device=hashes.device)
+        won, _, _ = flush_lanes(self.shards, self.spec, hashes, weights,
+                                firsts, self.is_virgin(), False)
+        self._n_unique += won.sum()
+        return won
 
     def add_batch(self, hashes, weights=None):
         """add_lanes for host uint64 hashes (and optional uint32
@@ -183,10 +359,17 @@ class Storage:
         """Single-hash add; returns True when the k-mer was unseen."""
         return bool(self.add_batch([khash])[0])
 
-    def get_lanes(self, hashes, cap=None):
-        """Counts of device hashes, capped at the read cap (uint16)."""
-        return sketch_get(self._geom, self.table, hashes,
-                          self.read_cap() if cap is None else cap)
+    def get_lanes(self, hashes, cap=None, tables=None):
+        """Counts of device hashes, capped at the read cap (uint16): the
+        min over the tables, or over the slice `tables` of them (one
+        table's bins: slice(t, t + 1)).  K3, or on a bin-sharded table
+        K20 on every piece and the mesh's min."""
+        cap = self.read_cap() if cap is None else cap
+        if self.shards is not None:
+            return self.shards.get(hashes, cap, tables)
+        geom = self._geom if tables is None else \
+            tuple(g[tables] for g in self._geom)
+        return sketch_get(geom, self._table, hashes, cap)
 
     def get_batch(self, hashes):
         """Counts for host hashes (numpy), with the loaded-map overlay."""
@@ -208,8 +391,14 @@ class Storage:
         self._host_table = None
 
     def _take_snapshot(self):
-        """The table's u32 bins as a host numpy copy."""
-        return self.table.to("cpu", copy=True).numpy().view(np.uint32)
+        """The table's u32 bins as a host numpy copy (piece by piece for a
+        bin-sharded table)."""
+        if self.shards is None:
+            return self._table.to("cpu", copy=True).numpy().view(np.uint32)
+        out = np.empty(self.shards.n_bins, np.uint32)
+        for piece, (lo, hi) in zip(self.shards.pieces, self.shards.bounds):
+            out[lo:hi] = piece.cpu().numpy().view(np.uint32)
+        return out
 
     def _bins_of(self, hashes):
         """[T, n] global bin indices (numpy int64) of uint64 hashes."""
@@ -259,12 +448,45 @@ class Storage:
         the device (K14).  khmer_tpu (storage.py:300-313) fetches a
         sparse table's nonzero (bin, value) pairs instead, for a slow
         link; the bytes are the same, and over this card's PCIe the
-        dense stream saves faster (PERF.md)."""
-        return pack_oxli_bytes(self.spec, self.table)
+        dense stream saves faster (PERF.md).  A bin-sharded table packs
+        each piece's part of each table in the table's kind on the
+        piece's device (K14; no byte spans two pieces, see PIECE_ALIGN)
+        and moves its bytes to the host a piece at a time."""
+        if self.shards is None:
+            return pack_oxli_bytes(self.spec, self._table)
+        spec = self.spec
+        per = {"byte": 1, "nibble": 2, "bit": 8}[self.kind]
+        nbytes = spec.bytes_per_table
+        starts = np.cumsum((0,) + nbytes[:-1])
+        out = np.empty(spec.total_bytes, np.uint8)
+        for piece, (lo, hi) in zip(self.shards.pieces, self.shards.bounds):
+            # (bins, first bin in the piece, bytes) of each table's part
+            parts, first = [], None
+            for t, (size, off) in enumerate(zip(spec.tablesizes,
+                                                spec.bin_offsets)):
+                a, b = max(lo, off), min(hi, off + size)
+                if a >= b:
+                    continue
+                k = (a - off) // per  # the part's first byte in table t
+                parts.append((b - a, a - lo, nbytes[t] - k
+                              if b == off + size else (b - a) // per))
+                if first is None:
+                    first = starts[t] + k
+            if not parts:
+                continue
+            sizes, offs, nb = (list(c) for c in zip(*parts))
+            packed = kernels.pack_oxli_bytes(
+                piece, self.kind,
+                torch.tensor(sizes, dtype=torch.int64, device=piece.device),
+                torch.tensor(offs, dtype=torch.int64, device=piece.device),
+                nb)
+            out[first:first + packed.numel()] = packed.cpu().numpy()
+        return out
 
     def replace_table(self, bins):
         """Take `bins` (int32 bit patterns of the u32 bins, on this
         storage's device) as the table."""
+        self.refuse_shards("replacing the table")
         if bins.shape != self.table.shape:
             raise ValueError("expected {} bins, got {}".format(
                 self.table.numel(), tuple(bins.shape)))
@@ -273,6 +495,7 @@ class Storage:
         self._wrote()
 
     def set_raw_bytes(self, data, n_occupied=0):
+        self.refuse_shards("loading bytes into the table")
         data = np.asarray(data, dtype=np.uint8)
         if data.size != self.spec.total_bytes:
             raise ValueError("raw byte size mismatch")
@@ -295,6 +518,8 @@ class BitStorage(Storage):
         (reference behavior)."""
         if self.spec.tablesizes != other.spec.tablesizes:
             raise ValueError("both nodegraphs must have same table sizes")
+        self.refuse_shards("update")
+        other.refuse_shards("update")
         # unsigned order: flip the sign bit on both sides of a signed max
         flip = -(1 << 31)
         self.table.bitwise_xor_(flip)

@@ -2102,3 +2102,184 @@ def test_mesh_across_cards(tmp_path):
     want = serial.storage.get_lanes(_u64.as_tensor(got["probe"], "cuda:0"),
                                     65535).cpu().numpy()
     assert np.array_equal(got["counts"], want)
+
+
+# ---------------------------------------------------------------------------
+# slice 15: K18 owned_claims, K19 owned_add, K20 owned_get, and the
+# bin-sharded table's consume on the card
+# ---------------------------------------------------------------------------
+
+
+def _piece_lanes(case, spec, bounds, n=6000, seed=0):
+    """Distinct-or-not (key, total, first) lanes for the piece kernels:
+    random; empty; all dead; a hot key on half the lanes; and keys whose
+    table-t bins fall on every piece's first and last bins and on the last
+    table's last bin."""
+    rng = np.random.default_rng(seed)
+    if case == "empty":
+        n = 0
+    h = rng.integers(0, 2 ** 64, n, dtype=np.uint64)
+    w = rng.choice(np.array([0, 1, 3, 200, 300, (1 << 32) - 1], np.uint32),
+                   n)
+    f = rng.permutation(n).astype(np.uint32) * np.uint32(7)
+    if case == "dead":
+        h[::2] = 2 ** 64 - 1
+        w[1::2] = 0
+    elif case == "hot":
+        h[::2] = h[0]
+    elif case == "edges":
+        sizes, offs = spec.tablesizes, spec.bin_offsets
+        edges = [g for lo, hi in bounds for g in (lo, hi - 1)] + \
+            [spec.total_bins - 1]
+        j = 0
+        for g in edges:
+            for t, (p, o) in enumerate(zip(sizes, offs)):
+                if o <= g < o + p and j < n:
+                    h[j] = np.uint64(g - o) + np.uint64(p) * \
+                        np.uint64(rng.integers(0, 2 ** 40))
+                    w[j] = 1 + j % 3
+                    j += 1
+    return (_u64.as_tensor(h, "cpu"), torch.from_numpy(w.view(np.int32)),
+            torch.from_numpy(f.view(np.int32)))
+
+
+PIECE_CASES = ["random", "empty", "dead", "hot", "edges"]
+
+
+def _pieces(spec, S, seed):
+    """A random u32 table of spec's bins and its spare bin (about half
+    zero) cut into S pieces as Storage.shard_table cuts it."""
+    from khmer_tpu_torch.storage import piece_bounds
+
+    n = spec.total_bins + 1
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 400, n).astype(np.uint32)
+    t[rng.random(t.size) < 0.5] = 0
+    t[-1] = 0
+    t = torch.from_numpy(t.view(np.int32))
+    bounds = piece_bounds(spec, n, S)
+    return [t[lo:hi].clone() for lo, hi in bounds], bounds
+
+
+@pytest.mark.parametrize("virgin", [True, False])
+@pytest.mark.parametrize("sizes", [(100003,), (1009, 1013, 1019, 1021)])
+@pytest.mark.parametrize("case", PIECE_CASES)
+def test_owned_kernels(dev, case, sizes, virgin):
+    """K18 (flags, candidates as a set and their count, the piece left as
+    it was), K19 (the piece after) and K20 (the minima) on each of three
+    pieces equal the plain versions', at T = 1 and 4, with the pieces'
+    edge bins and the last table's last bin hit."""
+    spec = SketchSpec("byte", sizes)
+    pieces, bounds = _pieces(spec, 3, seed=len(sizes))
+    if virgin:
+        pieces = [torch.zeros_like(p) for p in pieces]
+    k, w, f = _piece_lanes(case, spec, bounds, seed=len(case))
+    g_cpu, g_dev = spec.geometry("cpu"), spec.geometry(dev)
+    kd, wd, fd = k.to(dev), w.to(dev), f.to(dev)
+    n = k.numel()
+    for piece, (lo, _) in zip(pieces, bounds):
+        kernels.reset_launches()
+        out = {}
+        for side, fns, args, p, g in (
+                ("kernel", kernels, (kd, wd, fd), piece.clone().to(dev),
+                 g_dev),
+                ("plain", plain, (k, w, f), piece.clone(), g_cpu)):
+            d = args[0].device
+            flags = torch.zeros(n, dtype=torch.int32, device=d)
+            cand = torch.zeros(64, dtype=torch.int64, device=d)
+            count = torch.zeros(1, dtype=torch.int32, device=d)
+            fns.owned_claims(*args, p, lo, *g, flags, virgin, cand, count)
+            before = p.clone()
+            fns.owned_add(args[0], args[1], p, lo, *g)
+            got = fns.owned_get(args[0], p, lo, *g)
+            m = min(int(count), 64)
+            out[side] = (flags.cpu(), set(cand[:m].cpu().tolist()),
+                         int(count), before.cpu(), p.cpu(), got.cpu())
+        torch.cuda.synchronize()
+        kf, kc, kn, kb, kp, kg = out["kernel"]
+        pf, pc, pn, pb, pp, pg = out["plain"]
+        assert torch.equal(kf, pf) and kn == pn and torch.equal(kg, pg)
+        assert torch.equal(kb, piece) and torch.equal(kp, pp)
+        if pn <= 64:
+            assert kc == pc
+        if n:
+            assert kernels.LAUNCHES["owned_claims"] == 2
+            assert kernels.LAUNCHES["owned_add"] == 1
+            assert kernels.LAUNCHES["owned_get"] == 1
+
+
+@pytest.mark.parametrize("kind", ["byte", "nibble", "bit"])
+def test_binshard_raw_bytes_on_card(dev, kind):
+    """raw_bytes of a 4-piece table of each kind equals the whole
+    table's: K14 packs each piece on the card in the table's kind, one
+    launch a piece."""
+    from khmer_tpu_torch.graph import SmallCountgraph
+    from khmer_tpu_torch.parallel import make_mesh
+
+    cls = {"byte": Countgraph, "nibble": SmallCountgraph,
+           "bit": Nodegraph}[kind]
+    rng = np.random.default_rng(3)
+    primes = get_n_primes_near_x(4, 100_000)
+    keys = rng.integers(0, 1 << 62, 200_000).astype(np.uint64)
+    weights = rng.integers(1, 300, keys.size).astype(np.uint32)
+    whole = cls(20, primes=primes, device=dev)
+    whole.storage.add_batch(keys, weights)
+    g = cls(20, primes=primes, device=dev)
+    g.storage.shard_table(make_mesh([torch.device("cuda", 0)] * 4))
+    g.storage.add_batch(keys, weights)
+    want = whole.storage.raw_bytes()
+    kernels.reset_launches()
+    assert np.array_equal(g.storage.raw_bytes(), want)
+    assert kernels.LAUNCHES["pack_oxli_bytes"] == 4
+
+
+def _binshard_devices(which):
+    if which == "cuda:0" or torch.cuda.device_count() < 4:
+        return [torch.device("cuda", 0)] * 4
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.parametrize("which", ["cuda:0", "cuda:0-3"])
+def test_binshard_consume_on_card(dev, tmp_path, which):
+    """consume_seqfile into a 4-piece Countgraph (on cuda:0 four times, and
+    on four cards where the machine has them) equals the serial K2 consume
+    on the card: return, table bytes, n_unique, n_occupied, counts and
+    the bigcount section; K18-K20 launched; and so does tagging into a
+    4-piece Nodegraph (tags, table, n_unique)."""
+    from khmer_tpu_torch.parallel import make_mesh
+
+    if which == "cuda:0-3" and torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    fa = str(tmp_path / "reads.fa")
+    _write_reads(fa, 11)
+    primes = get_n_primes_near_x(4, 1_000_000)
+    serial = Countgraph(20, primes=primes, device=dev)
+    serial.set_use_bigcount(True)
+    want = serial.consume_seqfile(fa)
+    g = Countgraph(20, primes=primes, device=dev)
+    g.set_use_bigcount(True)
+    mesh = make_mesh(_binshard_devices(which))
+    lay = g.storage.shard_table(mesh)
+    assert [p.device for p in lay.pieces] == list(mesh.devices)
+    kernels.reset_launches()
+    assert g.consume_seqfile(fa, chunk=1 << 14) == want
+    probe = serial.storage._take_snapshot()
+    assert np.array_equal(g.storage.host_table(), probe)
+    assert np.array_equal(g.storage.raw_bytes(), serial.storage.raw_bytes())
+    assert g.n_unique_kmers() == serial.n_unique_kmers()
+    assert g.n_occupied() == serial.n_occupied()
+    assert g.storage.resolved_bigcounts() == \
+        serial.storage.resolved_bigcounts()
+    h = _u64.as_tensor(np.random.default_rng(1).integers(
+        0, 2 ** 64, 5000, dtype=np.uint64), dev)
+    assert torch.equal(g.storage.get_lanes(h, 65535),
+                       serial.storage.get_lanes(h, 65535))
+    for name in ("owned_claims", "owned_add", "owned_get", "combine_lanes",
+                 "hash2bit_canonical"):
+        assert kernels.LAUNCHES[name] > 0, name
+    a = Nodegraph(20, primes=primes, device=dev)
+    b = Nodegraph(20, primes=primes, device=dev)
+    b.storage.shard_table(make_mesh(_binshard_devices(which)))
+    assert a.consume_seqfile_and_tag(fa) == b.consume_seqfile_and_tag(fa)
+    assert a.all_tags == b.all_tags
+    assert np.array_equal(a.storage.raw_bytes(), b.storage.raw_bytes())
