@@ -2,6 +2,7 @@
 """Smoke test of khmer_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ab OTHER_CHECKOUT [--lanes N ...] [--seed N]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device: requires torch.cuda; prints the card's name and power limit;
@@ -15,11 +16,14 @@ Phases (any failure exits non-zero; nothing is caught):
      apart (torch.profiler); K3 also on 2**23 distinct keys, with the
      random 32-byte sectors it reads a second, and with each one
      table's geometry (the reads of phase 10's knot walk and stop-tag
-     flags, Storage.get_lanes(tables=)); K4 on a chunk's distinct
+     flags, Storage.get_lanes(tables=)), and on the same keys K3t and
+     K20 (piece 0 of 4) alone by torch.profiler, for phases 13 (a) and
+     14 (a); K4 on a chunk's distinct
      hashes, all absent and every count 0, and on a main-path window
      (the K2 batch's distinct hashes in first-occurrence order, half of
      them tracked);
-  4. main path: load-into-counting (-k 20 -N 4 -x 1e8) then
+  4. main path: load-into-counting (-k 20 -N 4 -x 1e8; its consume is
+     the deferred counter on the whole table: K1, K16, K18 and K19) then
      abundance-dist-single and abundance-dist on synthetic 100-bp reads
      at 20x over a random 3.2 Mbase genome (bench.py's input), through
      the port's script entry points; then the overlay run,
@@ -223,7 +227,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (band_route), K16 (combine_lanes), K17 (claim_scatter and
      claim_count), K3t (sketch_get_tables) and K10's relax and jump entry
      points against their plain versions, bit for bit (K16 after a sort
-     by key), on the first 2**23-lane chunk of the phase-4 file and a hot
+     by key; K3t also on 2**23 distinct random keys, with its time alone
+     (phase 3's), the random sectors it reads a second and the
+     library gather table[idx] beside it), on the first 2**23-lane chunk
+     of the phase-4 file and a hot
      chunk (poly-A on half the lanes, which forces leftovers), the chunk's
      distinct lanes virgin and against the phase-4 .ct, and phase 7's
      star; (b) ShardedDeferredConsumer over a data=1, shard=4 mesh on the
@@ -245,19 +252,31 @@ Phases (any failure exits non-zero; nothing is caught):
      as a set), on the first 2**23-lane chunk of the phase-4 file (its
      first lanes replaced by keys whose bins are every piece's first and
      last bin and the last table's last bin) on each of 4 pieces
-     of the phase-4 .ct; (b) Storage.shard_table over 4 shards of the
-     card, then consume_seqfile of the phase-4 file (the deferred
-     counter): its saved .ct (bigcount section included), raw bytes,
-     n_occupied and n_unique equal to phase 4's serial K2 table; wall,
-     stage ms, device busy, peak memory and each piece's bytes printed,
-     and the same run through the plain versions equal; (c) the deferred
-     counter on a whole table gives the same .ct; (d) a 4-piece Nodegraph
+     of the phase-4 .ct, K20's time alone (phase 3's) beside, with the
+     owned sectors it reads a second; (b) Storage.shard_table over 4
+     shards of the card, then consume_seqfile of the phase-4 file (the
+     deferred counter, as phase 4's consume on the whole table): its
+     saved .ct (bigcount section included), raw bytes, n_occupied and
+     n_unique equal to phase 4's whole table; wall, stage ms, device
+     busy, peak memory and each piece's bytes printed, and the same run
+     through the plain versions equal; (d) a 4-piece Nodegraph
      of phase 7's geometry takes consume_seqfile_and_tag of phase 7's
      reads: its tags and raw bytes (packed a piece at a time by K14 in
      the bit kind) equal phase 7's graph, find_all_tags
      from three seeds and do_partition_device over the 4-shard mesh equal
-     the whole graph's.  K18-K20 must have been launched by (b) and (d).
+     the whole graph's.  K18-K20 must have been launched by (b) and (d);
+     K20's lanes per call over them are printed (median, total).
 The last lines are the kernels JSON and {"ok": true, "device": ...}.
+
+With --ab, instead of the phases: this checkout against OTHER_CHECKOUT
+(another version of this repository, say the parent commit unpacked with
+git archive) on the card, in four processes (other, this, this, other),
+each with its checkout's khmer_tpu_torch: ptxas's report of the K3t and
+K20 kernels (first two runs); K3t and K20 at 2**16 and 2**23 lanes and
+each --lanes (a wrapper call by CUDA events, the kernel alone by
+torch.profiler); phase 4's consume (walls, peak device memory above the
+table, n_unique, the .ct's sha256).  Fails if the outputs differ; the
+last line is one JSON object of every run's numbers and the card.
 """
 
 import argparse
@@ -336,11 +355,13 @@ SOURCES = {
     "owned_get": ("khmer_tpu_torch/kernels/csrc/binshard.cu",
                   "khmer_tpu/storage.py:245"),
 }
-# the kernels each path must launch: phase 4 (slice 1) and phase 5
-# (slice 2, which loads .ct files and counts as slice 1 does)
-MAIN_PATH = ("hash2bit_canonical", "sketch_update", "sketch_get",
-             "abund_hist", "bin_scatter_add", "count_nonzero",
-             "pack_oxli_bytes")
+# the kernels each path must launch: phase 4 (slice 1: its consume is the
+# deferred counter, K16 with the K18/K19 flush into the whole table; K2
+# adds the histogram's tracking) and phase 5 (slice 2, which loads .ct
+# files and counts as slice 1 does)
+MAIN_PATH = ("hash2bit_canonical", "combine_lanes", "owned_claims",
+             "owned_add", "sketch_update", "sketch_get", "abund_hist",
+             "bin_scatter_add", "count_nonzero", "pack_oxli_bytes")
 SLICE2_PATH = ("row_counts", "diginorm_chain", "trim_chain",
                "hash2bit_canonical", "sketch_update", "sketch_get",
                "bin_scatter_add")
@@ -528,11 +549,14 @@ def kernel_ms_by_name(fn, reps):
             fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.split("(")[0]
+    # the raw kineto events, as device_share reads them: late in the smoke
+    # prof.events() came back without the device's events
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name().replace("(anonymous namespace)::", "").split(
+                "(")[0]
             by_name[name] = by_name.get(name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / reps
+                e.duration_ns() / 1e6 / reps
     return by_name
 
 
@@ -735,6 +759,7 @@ def check_kernels(seed, dev, lanes=1 << 23, table_size=1e8,
         k3[name]["keymajor_gather_min_ms"] = cuda_ms(
             lambda: torch.amin(post[bins], dim=1), 5)
         del bins
+    rec["alone"] = gathers_alone(post, (hi << 32) | lo, spec, geom)
     del hi, lo
     a, b = k3["batch"], k3["distinct"]
     record("sketch_get", max(a["err"], b["err"]), a["ms"], a["plain_ms"],
@@ -3969,6 +3994,65 @@ def sorted_by_key(out):
     return (k[:n][order], w[:n][order], f[:n][order], nv)
 
 
+def gathers_alone(table, keys, spec, geom):
+    """K3t on the table and K20 on its piece 0 (cut in BINSHARD_PIECES as
+    Storage.shard_table cuts it), on the keys: each kernel alone
+    (torch.profiler), the random sectors it reads a second by that time,
+    and a wrapper call by CUDA events on the same input, for phases 13 (a)
+    and 14 (a)'s records."""
+    from khmer_tpu_torch import kernels
+    from khmer_tpu_torch.kernels import plain
+    from khmer_tpu_torch.storage import piece_bounds
+
+    lo, hi = piece_bounds(spec, table.numel(), BINSHARD_PIECES)[0]
+    piece = table[lo:hi].clone()
+    bins = plain._bins(keys, *geom[:2])
+    owned = int(((bins >= lo) & (bins < hi)).sum())
+    del bins
+    out = {}
+    for name, fn, sectors in (
+            ("sketch_get_tables",
+             lambda: kernels.sketch_get_tables(table, keys, *geom),
+             keys.numel() * len(spec.tablesizes)),
+            ("owned_get", lambda: kernels.owned_get(keys, piece, lo, *geom),
+             owned)):
+        alone = kernel_alone_ms(fn, name + "_kernel")
+        out[name] = dict(
+            kernel_only_ms=alone, kernel_only_keys=keys.numel(),
+            kernel_only_wrapper_ms=cuda_ms(fn, 10),
+            kernel_only_sectors_per_s=sectors / (alone * 1e-3)
+            if alone else None)
+        log("{} alone (torch.profiler; None: not measured) on {} distinct "
+            "random keys, {} sectors: {}".format(name, keys.numel(), sectors,
+                                                 json.dumps(out[name])))
+    return out
+
+
+def kernel_alone_ms(fn, kernel, reps=5):
+    """Device time per call of fn's CUDA kernels whose name holds
+    `kernel` (torch.profiler), or None where the profile holds none.  In a
+    fresh process the profile holds them; ten minutes into the smoke a
+    window of a few such calls came back without them, so the smoke takes
+    these times in phase 3."""
+    by_name = kernel_ms_by_name(fn, reps)
+    return sum(v for k, v in by_name.items() if kernel in k) or None
+
+
+def gather_timed(sectors, kernel, plain_fn, idx=None, table=None):
+    """A gather kernel (K3t, K20) against its plain version on one input:
+    max_abs_err, ms a wrapper call (CUDA events), the plain version's ms,
+    the random table sectors it requests (`sectors`: a bin each; duplicate
+    keys may hit L2) a second, and, with idx, the library gather
+    table[idx] of the precomputed bins."""
+    err = max_abs_err(kernel(), plain_fn())
+    ms = cuda_ms(kernel, 10)
+    out = dict(err=err, ms=ms, plain_ms=cuda_ms(plain_fn, 3),
+               sectors_per_s=sectors / (ms * 1e-3))
+    if idx is not None:
+        out["library_ms"] = cuda_ms(lambda: table[idx], 10)
+    return out
+
+
 def check_shard_kernels(seed, dev, reads_fa, ct, rec, star):
     """Phase 13 (a): K15, K16, K17, K3t and K10's relax and jump entry
     points against their plain versions on the card, bit for bit (K16
@@ -4081,18 +4165,34 @@ def check_shard_kernels(seed, dev, reads_fa, ct, rec, star):
                   count_ms=r["times"]["kernel"][1],
                   virgin_ms=sum(runs["virgin"]["times"]["kernel"]),
                   virgin_plain_ms=sum(runs["virgin"]["times"]["plain"]))
-    got = kernels.sketch_get_tables(table.table, hashes, *geom)
-    want = plain.sketch_get_tables(table.table, hashes, *geom)
-    idx = plain._bins(hashes, *geom[:2])
+    # K3t on the chunk's hashes (part of their bins repeat, so some
+    # sectors come from L2) and on 2**23 distinct random keys (each bin a
+    # random 32-byte sector from device memory), beside the library
+    # gather of precomputed bins, table[idx]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    hi, lo = torch.randint(0, 1 << 32, (2, n), generator=g, device=dev,
+                           dtype=torch.int64)
+    k3t = {}
+    for name, keys in (("chunk", hashes), ("distinct", (hi << 32) | lo)):
+        k3t[name] = gather_timed(
+            n * T,
+            lambda keys=keys: kernels.sketch_get_tables(table.table, keys,
+                                                        *geom),
+            lambda keys=keys: plain.sketch_get_tables(table.table, keys,
+                                                      *geom),
+            plain._bins(keys, *geom[:2]), table.table)
+        log("K3t {}: {} keys, {} tables; {}".format(name, n, T, json.dumps(
+            k3t[name])))
+    a, b = k3t["chunk"], k3t["distinct"]
     record_kernel(
-        rec, "sketch_get_tables", max_abs_err(got, want),
-        cuda_ms(lambda: kernels.sketch_get_tables(table.table, hashes,
-                                                  *geom), 10),
-        cuda_ms(lambda: plain.sketch_get_tables(table.table, hashes,
-                                                *geom), 3),
-        8 * n + 8 * T * n,
-        library_ms=cuda_ms(lambda: table.table[idx], 10), keys=n)
-    del got, want, idx, table, lanes, hot, distinct, hashes
+        rec, "sketch_get_tables", max(a["err"], b["err"]), a["ms"],
+        a["plain_ms"], 8 * n + 8 * T * n, library_ms=a["library_ms"],
+        keys=n, sectors_per_s=a["sectors_per_s"], distinct_ms=b["ms"],
+        distinct_library_ms=b["library_ms"],
+        distinct_sectors_per_s=b["sectors_per_s"],
+        **rec["alone"]["sketch_get_tables"])
+    del hi, lo, table, lanes, hot, distinct, hashes
     gc.collect()
     torch.cuda.empty_cache()
     # K10's split on phase 7's star
@@ -4472,12 +4572,22 @@ def check_binshard_kernels(seed, dev, reads_fa, ct, rec):
     # and the minima out (K20)
     nbytes = (16 * n + 4 * n + 8 * owned, 12 * n + 8 * owned,
               8 * n + 4 * owned_all + 4 * n)
+    # K20 and the owned sectors it reads a second
+    k20 = gather_timed(owned_all,
+                       lambda: kernels.owned_get(keys, piece, lo, *geom),
+                       lambda: plain.owned_get(keys, piece, lo, *geom))
+    log("K20 on piece 0: {} lanes, {} owned bins; {}".format(
+        n, owned_all, json.dumps(k20)))
+    extra = {"owned_get": dict(
+        sectors_per_s=owned_all / (times["kernel"][2] * 1e-3),
+        **rec["alone"]["owned_get"])}
     for i, name in enumerate(("owned_claims", "owned_add", "owned_get")):
-        record_kernel(rec, name, err[name], times["kernel"][i],
-                      times["plain"][i], nbytes[i], lanes=n,
-                      pieces=BINSHARD_PIECES,
+        record_kernel(rec, name, max(err[name], k20["err"] if i == 2 else 0),
+                      times["kernel"][i], times["plain"][i], nbytes[i],
+                      lanes=n, pieces=BINSHARD_PIECES,
                       piece_bins=[hi - lo for lo, hi in lay.bounds],
-                      owned_bins=owned if i < 2 else owned_all)
+                      owned_bins=owned if i < 2 else owned_all,
+                      **extra.get(name, {}))
     del st, lay, keys, wgts, firsts
     gc.collect()
     torch.cuda.empty_cache()
@@ -4502,12 +4612,26 @@ def saved_bytes(g, path):
         return f.read()
 
 
+@contextlib.contextmanager
+def lanes_logged(module, name, lanes):
+    """Append the lanes (first argument's numel) of every call of
+    module.name in the body to `lanes`."""
+    real = getattr(module, name)
+
+    def call(keys, *a, **kw):
+        lanes.append(keys.numel())
+        return real(keys, *a, **kw)
+
+    with mock.patch.object(module, name, call):
+        yield
+
+
 def run_binshard(card, dev, tmp, reads_fa, ct):
-    """Phase 14 (b)-(d): the bin-sharded Countgraph's consume of the
-    phase-4 file against phase 4's serial table (its timed .ct), the
-    deferred counter on a whole table, and the 4-piece Nodegraph's
-    tagging and partitions against phase 7's graph.  Returns the path's
-    launches, (b)'s and (d)'s."""
+    """Phase 14 (b) and (d): the bin-sharded Countgraph's consume of the
+    phase-4 file against phase 4's serial table (its timed .ct, which the
+    deferred counter made on the whole table), and the 4-piece Nodegraph's
+    tagging and partitions against phase 7's graph, with K20's lanes per
+    call.  Returns the path's launches, (b)'s and (d)'s."""
     import torch
 
     from khmer_tpu_torch import Countgraph, Nodegraph, SubsetPartition
@@ -4531,6 +4655,10 @@ def run_binshard(card, dev, tmp, reads_fa, ct):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     kernels.reset_launches()
+    # K20's lanes a call, over the runs whose launches phase 14 counts
+    k20_lanes = []
+    k20_log = contextlib.ExitStack()
+    k20_log.enter_context(lanes_logged(kernels, "owned_get", k20_lanes))
     t0 = time.perf_counter()
     g, lay = binshard_countgraph(dev)
     n_reads, n_cons = g.consume_seqfile(reads_fa)
@@ -4547,6 +4675,7 @@ def run_binshard(card, dev, tmp, reads_fa, ct):
                  g.n_occupied(), g.n_unique_kmers(), want_occ, ct_unique))
     # the consume, its save and the reads
     launches = dict(kernels.LAUNCHES)
+    k20_log.close()
     missing = [k for k in ("owned_claims", "owned_add", "combine_lanes",
                            "hash2bit_canonical") if launches[k] == 0]
     if missing:
@@ -4600,21 +4729,6 @@ def run_binshard(card, dev, tmp, reads_fa, ct):
     del pg
     gc.collect()
     torch.cuda.empty_cache()
-    # (c) the deferred counter on the whole table
-    wg = binshard_countgraph(dev, shards=0)[0]
-    sync(dev)
-    t0 = time.perf_counter()
-    wg._consume_deferred(reads_fa)
-    sync(dev)
-    t_whole = time.perf_counter() - t0
-    if saved_bytes(wg, os.path.join(tmp, "deferred.ct")) != want or \
-            wg.n_unique_kmers() != ct_unique:
-        fail("the deferred counter on a whole table differs from phase 4's")
-    log("phase 14 (c): DeferredCounter on the whole table: the same .ct "
-        "and n_unique; wall {:.3f} s [{}]".format(t_whole, card))
-    del wg
-    gc.collect()
-    torch.cuda.empty_cache()
     # (d) the 4-piece Nodegraph against phase 7's graph
     base = os.path.join(tmp, "p7", "kernels", "g")
     ng = Nodegraph.load(base, device=dev)
@@ -4624,6 +4738,7 @@ def run_binshard(card, dev, tmp, reads_fa, ct):
     t_wraw = time.perf_counter() - t0
     mesh = make_mesh([dev] * BINSHARD_PIECES)
     kernels.reset_launches()
+    k20_log.enter_context(lanes_logged(kernels, "owned_get", k20_lanes))
     t0 = time.perf_counter()
     sg = Nodegraph(PARTITION_K, TABLE_SIZE, 4, device=dev)
     sg.storage.shard_table(mesh)
@@ -4653,6 +4768,7 @@ def run_binshard(card, dev, tmp, reads_fa, ct):
     for name in SOURCES:
         if name in kernels.LAUNCHES:
             launches[name] = launches.get(name, 0) + kernels.LAUNCHES[name]
+    k20_log.close()
     single = SubsetPartition(ng)
     single.do_partition_device()
     if partition_sets(meshed) != partition_sets(single):
@@ -4671,11 +4787,181 @@ def run_binshard(card, dev, tmp, reads_fa, ct):
             t_wraw, len(seeds), t_part, len(partition_sets(meshed)), card))
     log("phase 14 launches ((b) and (d)): {}".format(json.dumps(
         {k: launches[k] for k in SLICE15_PATH})))
+    calls = [m for m in k20_lanes if m]
+    if len(calls) != launches["owned_get"]:
+        fail("phase 14 logged {} K20 calls with lanes, {} launches".format(
+            len(calls), launches["owned_get"]))
+    by_pow2 = {}
+    for m in calls:
+        b = 1 << (m - 1).bit_length()
+        by_pow2[b] = by_pow2.get(b, 0) + 1
+    log("phase 14 K20 lanes per call ((b)'s save and (d)): {} launches, "
+        "{} lanes in all, median {}, min {}, max {}; calls by lanes up to "
+        "a power of two: {}".format(
+            len(calls), sum(calls), statistics.median(calls), min(calls),
+            max(calls), json.dumps(dict(sorted(by_pow2.items())))))
     del ng, sg, meshed, single
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 14: {:.1f} s".format(time.perf_counter() - t_phase))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# --ab OTHER: this checkout against another on the same card
+# ---------------------------------------------------------------------------
+
+AB_LANES = (1 << 16, 1 << 23)  # a short call (phase 14's are ~6e4) and 2**23
+AB_KERNELS = ("sketch_get_tables", "owned_get")
+AB_CONSUMES = 3  # timed, after one untimed
+
+
+def ptxas_report(build, kernels=AB_KERNELS, sources=("sketch", "binshard")):
+    """ptxas's resource lines (registers, stack frame, spills) of the
+    entry functions of `kernels` in a checkout's csrc sources, compiled
+    with its own nvcc flags (`build` is its kernels._build)."""
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    lines = []
+    for src in sources:
+        proc = subprocess.run(
+            [build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+             os.devnull, os.path.join(build.CSRC, src + ".cu")],
+            capture_output=True, text=True, check=True)
+        keep = False
+        for ln in proc.stderr.splitlines():
+            if "Compiling entry function" in ln:
+                keep = any(k in ln for k in kernels)
+            if keep:
+                lines.append(src + ".cu: " + ln.strip())
+    return lines
+
+
+def ab_worker(checkout, reads_fa, lanes, seed, ptxas):
+    """One run of --ab, with the checkout's khmer_tpu_torch: K3t and K20
+    at each number of lanes (a wrapper call by CUDA events; the kernel
+    alone by torch.profiler; a digest of the output) on a 4 x ~1e8-bin
+    table of random bins and distinct random keys (K20 on piece 0 of
+    the table cut in BINSHARD_PIECES as Storage.shard_table cuts it),
+    then phase 4's consume of reads_fa (one untimed, AB_CONSUMES timed,
+    each into a new table; the peak device memory above the table; the
+    .ct's sha256).  Prints one JSON line."""
+    sys.path.insert(0, checkout)
+    import torch
+
+    import khmer_tpu_torch
+    from khmer_tpu_torch import Countgraph, kernels
+    from khmer_tpu_torch.kernels import _build
+    from khmer_tpu_torch.ops.sketch_ops import SketchSpec
+    from khmer_tpu_torch.primes import get_n_primes_near_x
+    from khmer_tpu_torch.storage import piece_bounds
+
+    where = os.path.dirname(os.path.dirname(os.path.abspath(
+        khmer_tpu_torch.__file__)))
+    if os.path.realpath(where) != os.path.realpath(checkout):
+        fail("imported khmer_tpu_torch from " + where)
+    out = dict(checkout=checkout, ptxas=ptxas_report(_build) if ptxas
+               else [], kernels=[])
+    _build.function("khmer_sketch_get")
+    dev = torch.device("cuda")
+    spec = SketchSpec("byte", get_n_primes_near_x(4, TABLE_SIZE))
+    geom = spec.geometry(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n_bins = spec.total_bins + 1
+    table = torch.randint(-(1 << 31), 1 << 31, (n_bins,), generator=g,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+    lo0, hi0 = piece_bounds(spec, n_bins, BINSHARD_PIECES)[0]
+    piece = table[lo0:hi0].clone()
+    hi, lo = torch.randint(0, 1 << 32, (2, max(lanes)), generator=g,
+                           device=dev, dtype=torch.int64)
+    keys_all = (hi << 32) | lo
+    del hi, lo
+    for n in lanes:
+        keys = keys_all[:n]
+        for name, fn in (
+                ("sketch_get_tables",
+                 lambda: kernels.sketch_get_tables(table, keys, *geom)),
+                ("owned_get",
+                 lambda: kernels.owned_get(keys, piece, lo0, *geom))):
+            out["kernels"].append(dict(
+                name=name, lanes=n,
+                ms=cuda_ms(fn, 10, inner=5 if n >= 1 << 20 else 50),
+                alone_ms=kernel_alone_ms(fn, name + "_kernel"),
+                digest=hashlib.sha256(
+                    fn().cpu().numpy().tobytes()).hexdigest()[:16]))
+    del table, piece, keys_all, keys
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls, peaks = [], []
+    for _ in range(1 + AB_CONSUMES):
+        cg = Countgraph(K, TABLE_SIZE, 4, device=dev)
+        cg.set_use_bigcount(True)
+        sync(dev)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cg.consume_seqfile(reads_fa)
+        nu = cg.n_unique_kmers()
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+    with tempfile.TemporaryDirectory(prefix="khmer_ab_") as tmp:
+        sha = hashlib.sha256(saved_bytes(
+            cg, os.path.join(tmp, "t.ct"))).hexdigest()
+    out["consume"] = dict(untimed_s=walls[0], s=walls[1:], peak_bytes=peaks,
+                          table_bytes=held, n_unique=nu, ct_sha256=sha)
+    print(json.dumps(out))
+
+
+def run_ab(other, lanes, seed):
+    """--ab: K3t, K20 and phase 4's consume of this checkout against
+    `other`'s (another version of this repository, say the parent commit
+    unpacked with git archive), each run in a process of its own in the
+    order other, this, this, other, so that a drift of the card shows as
+    a difference between one checkout's two runs.  Fails if the outputs
+    differ between the checkouts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+    log("card: " + card)
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="khmer_ab_") as tmp:
+        fa = os.path.join(tmp, "reads.fa")
+        make_reads(fa, seed)
+        for i, (name, path) in enumerate((
+                ("other", os.path.abspath(other)), ("this", here),
+                ("this", here), ("other", os.path.abspath(other)))):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--ab-worker",
+                 path, fa, "--seed", str(seed), "--lanes",
+                 *map(str, lanes)] + (["--ptxas"] if i < 2 else []),
+                capture_output=True, text=True, cwd=path)
+            if proc.returncode:
+                print(proc.stderr, file=sys.stderr)
+                fail("the {} checkout's run failed".format(name))
+            r = json.loads(proc.stdout.strip().splitlines()[-1])
+            r["name"] = name
+            runs.append(r)
+            for ln in r["ptxas"]:
+                log("ptxas {}: {}".format(name, ln))
+            for k in r["kernels"]:
+                log("{:5s} {} lanes {}: {:.4f} ms a call, alone {} ms; "
+                    "digest {} [{}]".format(name, k["name"], k["lanes"],
+                                            k["ms"], k["alone_ms"],
+                                            k["digest"], card))
+            c = r["consume"]
+            log("{:5s} phase-4 consume: {} s (untimed first {:.3f} s); "
+                "peak device memory above the {}-byte table {} bytes; "
+                "n_unique {}; .ct sha256 {} [{}]".format(
+                    name, c["s"], c["untimed_s"], c["table_bytes"],
+                    c["peak_bytes"], c["n_unique"], c["ct_sha256"], card))
+    outputs = {json.dumps([[k["name"], k["lanes"], k["digest"]]
+                           for k in r["kernels"]] +
+                          [r["consume"]["n_unique"],
+                           r["consume"]["ct_sha256"]]) for r in runs}
+    if len(outputs) != 1:
+        fail("the checkouts' outputs differ")
+    log("outputs identical across the checkouts")
+    print(json.dumps({"card": card, "runs": runs}))
 
 
 def _u64_numpy(t):
@@ -4688,6 +4974,14 @@ def main():
     ap.add_argument("--dist-worker", nargs=4, metavar=("PORT", "PID", "FA",
                                                        "OUT"),
                     help="run one process of phase 13 (d) and exit")
+    ap.add_argument("--ab", metavar="OTHER_CHECKOUT",
+                    help="time K3t, K20 and phase 4's consume of this "
+                    "checkout against another's instead of the smoke")
+    ap.add_argument("--ab-worker", nargs=2, metavar=("CHECKOUT", "FA"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--lanes", type=int, nargs="*", default=[],
+                    help="with --ab, more numbers of lanes to time at")
     args = ap.parse_args()
 
     import torch
@@ -4697,6 +4991,13 @@ def main():
     if args.dist_worker:
         port, pid, fa, out = args.dist_worker
         dist_worker(port, int(pid), fa, out)
+        return
+    lanes = sorted(set(AB_LANES) | set(args.lanes))
+    if args.ab_worker:
+        ab_worker(*args.ab_worker, lanes, args.seed, args.ptxas)
+        return
+    if args.ab:
+        run_ab(args.ab, lanes, args.seed)
         return
 
     from khmer_tpu_torch.kernels import _build

@@ -4,13 +4,17 @@ trim-low-abund, filter-abund(-single) and count-median use.
 
 Device dataflow: the native loader (or the Python _FlatBatcher) cuts the
 cleaned 2-bit code stream into flat chunks with a per-window mask; per
-chunk, kernel K1 hashes every window in stream order and kernel K2 adds
-the lanes to the sketch with the exact claim rule.  One K2 update per
-chunk, in stream order, is exact (each chunk's pre-gather sees the adds
-of every earlier chunk), so the deferred sort-and-combine counter of
-khmer_tpu/ops/deferred.py is not needed for the counts.  Its cycle and
-ledger bookkeeping does decide abundance_distribution's membership
-windows, so _DeferSchedule mirrors it there.
+chunk, kernel K1 hashes every window in stream order.  The bulk consumes
+(consume_seqfile and its band and mask filters) run khmer_tpu's deferred
+counter, as khmer_tpu's do (ops/deferred.py: the chunks' lanes append,
+kernel K16 combines them, and kernels K18 and K19 flush each distinct
+k-mer into the table once by the exact claim rule), so that their
+bigcount candidates are khmer_tpu's.  consume, tagging and the streaming
+filters' tally add a batch with kernel K2 (the claim rule per batch and
+sketch_update's candidates, as khmer_tpu's Storage.add_batch).  The
+counter's cycle and ledger bookkeeping also decides
+abundance_distribution's membership windows, so _DeferSchedule mirrors
+it there.
 
 Read-level queries pad rows as khmer_tpu does and read every window's
 count with kernel K5, which hashes and reads in one pass.  The
@@ -36,9 +40,8 @@ reads with K8.  Its batch steps for the streaming filters take the
 decisions with K6 / K7 over the batch's distinct filter keys, so that
 they equal the reference's read-by-read loop.
 
-A bin-sharded table (Storage.shard_table) consumes through khmer_tpu's
-deferred counter (ops/deferred.py: K1, K8 or K11 a chunk, K16 combines,
-the K18/K19 flush on every piece), and its row counts are K1 (K8, K11)
+A bin-sharded table (Storage.shard_table) consumes through the same
+counter, its flush on every piece, and its row counts are K1 (K8, K11)
 and the pieces' reads (K20).  The histogram (K4) and the streaming
 filters (K6, K7) refuse it (ROADMAP Queue 2 item 4).
 """
@@ -529,13 +532,15 @@ class Hashtable:
         Hashtable::consume_seqfile, src/oxli/hashtable.cc:133-158.  With
         two or more devices for the table's device
         (parallel.sharded.default_devices) the consume runs sharded over
-        them (_use_sharded, khmer_tpu's rule).  A bin-sharded table
-        (Storage.shard_table) consumes through the deferred counter
-        (_consume_deferred)."""
-        if getattr(self.storage, "shards", None) is not None:
-            return self._consume_deferred(parser_or_filename, chunk)
+        them (_use_sharded, khmer_tpu's rule).  Otherwise a table of
+        bins, whole or bin-sharded (Storage.shard_table), consumes through
+        the deferred counter (_consume_deferred), as khmer_tpu's bulk
+        consumes do (_consume_native, _run_consume); the quotient filter
+        adds each chunk to its storage."""
         if self._use_sharded(parser_or_filename):
             return self._consume_sharded(parser_or_filename, chunk)
+        if getattr(self.storage, "spec", None) is not None:
+            return self._consume_deferred(parser_or_filename, chunk)
         stats = _StreamStats()
         for codes, mask in self._chunks(parser_or_filename, chunk, stats):
             self.storage.add_lanes(*self._chunk_lanes(codes, mask))
@@ -548,9 +553,12 @@ class Hashtable:
         (K8, K11) lanes, through K12 when `filters` (band_mask_weights'
         keywords) are given, append at their stream positions; finish()
         combines them (K16) and flushes each distinct k-mer into the table
-        once (K18, K19 on every piece of a bin-sharded table).  The same
-        table and n_unique as K2 a chunk; its bigcount candidates are
-        khmer_tpu's (ROADMAP Queue 3 has where K2's differ).  Returns
+        once (K18, K19 on the whole table, or on every piece of a
+        bin-sharded one).  The same table and n_unique as K2 a chunk, and
+        khmer_tpu's bigcount candidates: the keys whose table-0 bin before
+        the flush plus their own total passes 255, where K2 takes
+        sketch_update's rule (the lanes whose bin passes 255 after the
+        batch), which khmer_tpu's bulk consumes do not use.  Returns
         (n_reads, n_consumed), or with filters (n_reads, the k-mers that
         passed)."""
         from khmer_tpu_torch.ops.deferred import DeferredCounter
@@ -644,13 +652,14 @@ class Hashtable:
         (khmer_tpu/hashtable.py:_run_consume): per chunk, K1 (K8, K11)
         lanes, kernel K12 zeroes the weights of the lanes outside the band
         or failing the mask test and adds the rest to a total on the
-        device, and K2 adds the lanes (a weight-0 lane is dead: it claims
-        no bin and is no bigcount candidate).  The mask is read with this
-        table's hashes, at its storage kind's cap and without a loaded
-        bigcount map, as khmer_tpu reads it.  Returns (n_reads, the k-mers
-        that passed the filters; hashtable.cc:181-191), the total read
-        once at the end.  A bin-sharded table adds the passed lanes
-        through the deferred counter; a bin-sharded mask raises."""
+        device, and the deferred counter takes the lanes (a weight-0 lane
+        is dead: it claims no bin and is no bigcount candidate) and
+        flushes them at the end, into the whole table or every piece of a
+        bin-sharded one.  The mask is read with this table's hashes, at
+        its storage kind's cap and without a loaded bigcount map, as
+        khmer_tpu reads it; a bin-sharded mask raises.  Returns (n_reads,
+        the k-mers that passed the filters; hashtable.cc:181-191), the
+        total read once at the end."""
         if isinstance(parser_or_filename, str):
             # khmer_tpu opens the input before it checks the band
             open(parser_or_filename, "rb").close()
@@ -664,19 +673,10 @@ class Hashtable:
                                (ms.table, *ms._geom)))
             filters.update(cap=ms.read_cap(), threshold=_as_u32(threshold),
                            consume_masked=consume_masked)
-        if getattr(self.storage, "shards", None) is not None:
-            n_reads, passed = self._consume_deferred(parser_or_filename,
-                                                     chunk, filters)
-            self._refuse_empty(parser_or_filename, n_reads)
-            return n_reads, passed
-        stats = _StreamStats()
-        total = torch.zeros(1, dtype=torch.int64, device=self.device)
-        for codes, m in self._chunks(parser_or_filename, chunk, stats):
-            h, w = self._chunk_lanes(codes, m)
-            self.storage.add_lanes(
-                h, kernels.band_mask_weights(h, w, total, **filters))
-        self._refuse_empty(parser_or_filename, stats.n_reads)
-        return stats.n_reads, int(total.item())
+        n_reads, passed = self._consume_deferred(parser_or_filename, chunk,
+                                                 filters)
+        self._refuse_empty(parser_or_filename, n_reads)
+        return n_reads, passed
 
     @staticmethod
     def _refuse_empty(parser_or_filename, n_reads):

@@ -32,8 +32,15 @@
 // claim and piece bin at random; K19 the lanes (12 bytes) and T random
 // atomic adds; K20 the keys (8 bytes), T random reads and 4 bytes out.
 // Each random bin is a 32-byte sector of an array far larger than L2.
-// Simple grid-stride loops, a lane a thread, the geometry in shared
-// memory: these kernels are right first and fast later.
+// K18 and K19 are simple grid-stride loops, a lane a thread, the geometry
+// in shared memory: right first, fast later.  K20 takes K3t's shape
+// (common.cuh's gather_tables): a thread takes kKeysPerThread keys by two
+// 16-byte streaming loads, issues the owned loads of all of them in every
+// table before any min (T <= 4 a template argument), and writes its four
+// minima as one 16-byte streaming store; each block decides once from the
+// geometry which tables meet the piece, so that no lane computes a bin in
+// a table the piece does not hold, and the blocks shrink for short calls
+// so that every SM takes part.
 
 #include "common.cuh"
 
@@ -143,27 +150,68 @@ owned_add_kernel(const u64* __restrict__ keys,
     }
 }
 
+template <int TM>
 __global__ void __launch_bounds__(kThreads)
 owned_get_kernel(const u64* __restrict__ keys, long long n, int T,
                  const long long* __restrict__ sizes,
                  const long long* __restrict__ offs,
                  const u64* __restrict__ recips, long long lo, long long len,
-                 const unsigned* __restrict__ piece,
+                 const unsigned* __restrict__ piece, bool vec,
                  unsigned* __restrict__ out) {
     __shared__ Geometry g;
+    __shared__ unsigned meet;
     load_geometry(g, T, sizes, offs, recips);
     __syncthreads();
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n; i += stride) {
-        const u64 h = __ldcs(keys + i);
-        unsigned m = 0xFFFFFFFFu;
-        for (int t = 0; t < T; t++) {
-            const long long b = owned_bin(g, h, t, lo, len);
-            if (b >= 0) m = min(m, __ldg(piece + b));
+    if (threadIdx.x == 0) meet = tables_meeting(g, T, lo, len);
+    __syncthreads();
+    const long long i =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kKeysPerThread;
+    if (i >= n) return;
+    const unsigned tables = meet;
+    u64 h[kKeysPerThread];
+    bool live[kKeysPerThread];
+    load_keys(keys, i, n, vec, h, live);
+    unsigned m[kKeysPerThread];
+    if constexpr (TM > 0) {
+        unsigned v[TM][kKeysPerThread];
+        gather_tables<TM>(piece, g, tables, lo, len, h, live, v);
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++) {
+            m[j] = v[0][j];
+#pragma unroll
+            for (int t = 1; t < TM; t++) m[j] = min(m[j], v[t][j]);
         }
-        __stcs(out + i, m);
+    } else {
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++) m[j] = kNoBin;
+        for (int t = 0; t < T; t++) {
+            if (!((tables >> t) & 1u)) continue;
+            unsigned v[kKeysPerThread];
+            gather_table(piece, g, t, lo, len, h, live, v);
+#pragma unroll
+            for (int j = 0; j < kKeysPerThread; j++) m[j] = min(m[j], v[j]);
+        }
     }
+    if (i + kKeysPerThread <= n) {
+        __stcs((uint4*)(out + i), make_uint4(m[0], m[1], m[2], m[3]));
+    } else {
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++)
+            if (live[j]) __stcs(out + i + j, m[j]);
+    }
+}
+
+template <int TM>
+int get_launch(const void* keys, long long n, int T, const void* sizes,
+               const void* offs, const void* recips, const void* piece,
+               long long lo, long long len, bool vec, void* out,
+               long long blocks, int threads, void* stream) {
+    owned_get_kernel<TM><<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+        (const u64*)keys, n, T, (const long long*)sizes,
+        (const long long*)offs, (const u64*)recips, lo, len,
+        (const unsigned*)piece, vec, (unsigned*)out);
+    return (int)cudaGetLastError();
 }
 
 inline bool bad_args(long long n, int T, long long lo, long long len) {
@@ -219,17 +267,31 @@ extern "C" int khmer_owned_add(const void* keys, const void* wgts,
     return (int)cudaGetLastError();
 }
 
-// keys [n] (u64); the piece as in khmer_owned_claims; out: u32 [n]
+// keys [n] (u64), a view that takes the vector loads only when 16-byte
+// aligned; the piece as in khmer_owned_claims; out: u32 [n], a fresh
+// allocation (16-byte aligned)
 extern "C" int khmer_owned_get(const void* keys, long long n, int T,
                                const void* sizes, const void* offs,
                                const void* recips, const void* piece,
                                long long lo, long long len, void* out,
                                void* stream) {
-    if (bad_args(n, T, lo, len)) return (int)cudaErrorInvalidValue;
+    if (bad_args(n, T, lo, len) || (uintptr_t)out % 16 != 0)
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    owned_get_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const u64*)keys, n, T, (const long long*)sizes,
-        (const long long*)offs, (const u64*)recips, lo, len,
-        (const unsigned*)piece, (unsigned*)out);
-    return (int)cudaGetLastError();
+    const long long quads = (n + kKeysPerThread - 1) / kKeysPerThread;
+    const int threads = quad_threads(quads, sm_count());
+    const long long blocks = (quads + threads - 1) / threads;
+    const bool vec = (uintptr_t)keys % 16 == 0;
+    switch (T) {
+    case 1: return get_launch<1>(keys, n, T, sizes, offs, recips, piece, lo,
+                                 len, vec, out, blocks, threads, stream);
+    case 2: return get_launch<2>(keys, n, T, sizes, offs, recips, piece, lo,
+                                 len, vec, out, blocks, threads, stream);
+    case 3: return get_launch<3>(keys, n, T, sizes, offs, recips, piece, lo,
+                                 len, vec, out, blocks, threads, stream);
+    case 4: return get_launch<4>(keys, n, T, sizes, offs, recips, piece, lo,
+                                 len, vec, out, blocks, threads, stream);
+    default: return get_launch<0>(keys, n, T, sizes, offs, recips, piece, lo,
+                                  len, vec, out, blocks, threads, stream);
+    }
 }

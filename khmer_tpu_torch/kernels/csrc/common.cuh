@@ -122,3 +122,98 @@ __device__ __forceinline__ void min_over_tables<0>(
         for (int j = 0; j < kKeysPerThread; j++) c[j] = min(c[j], v[j]);
     }
 }
+
+// ---- the gather of K3t and K20 ---------------------------------------------
+
+constexpr unsigned kNoBin = 0xFFFFFFFFu;  // what a bin not gathered reads
+
+// The SMs of the calling thread's device, read once a process (the
+// process's cards are of one kind).
+static inline int sm_count() {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return sms;
+}
+
+// Threads a block for a kernel of kKeysPerThread keys a thread: kThreads,
+// halved down to a warp while `quads` threads would not fill a block on
+// every one of `sms` SMs, so that a short call still reaches them all.
+inline int quad_threads(long long quads, int sms) {
+    int threads = kThreads;
+    while (threads > 32 && quads < (long long)threads * sms) threads /= 2;
+    return threads;
+}
+
+// The keys i .. i + kKeysPerThread - 1 of hashes [n], i < n: as two
+// 16-byte streaming loads when `vec` (hashes 16-byte aligned) and all
+// four lie below n, else one by one; live[j] = i + j < n (0 past n).
+__device__ __forceinline__ void load_keys(const u64* __restrict__ hashes,
+                                          long long i, long long n,
+                                          bool vec, u64 (&h)[kKeysPerThread],
+                                          bool (&live)[kKeysPerThread]) {
+    if (vec && i + kKeysPerThread <= n) {
+        const ulonglong2 a = __ldcs((const ulonglong2*)(hashes + i));
+        const ulonglong2 b = __ldcs((const ulonglong2*)(hashes + i + 2));
+        h[0] = a.x, h[1] = a.y, h[2] = b.x, h[3] = b.y;
+    } else {
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; j++)
+            h[j] = i + j < n ? __ldcs(hashes + i + j) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) live[j] = i + j < n;
+}
+
+// Bit t set where table t's bins [off_t, off_t + p_t) meet the bins
+// [lo, lo + len) of a piece; the caller synchronises the geometry first.
+__device__ __forceinline__ unsigned tables_meeting(const Geometry& g, int T,
+                                                   long long lo,
+                                                   long long len) {
+    unsigned m = 0u;
+    for (int t = 0; t < T; t++)
+        if (g.off[t] < lo + len && g.off[t] + (long long)g.size[t] > lo)
+            m |= 1u << t;
+    return m;
+}
+
+// the len of a piece that is the whole table (with lo = 0)
+constexpr long long kAllBins = 0x7FFFFFFFFFFFFFFFLL;
+
+// v[j] = piece[b - lo] for table t's bin b of each live key h[j] where
+// lo <= b < lo + len, else kNoBin: the kKeysPerThread loads go out
+// together through the read-only path.
+__device__ __forceinline__ void gather_table(
+        const unsigned* __restrict__ piece, const Geometry& g, int t,
+        long long lo, long long len, const u64 (&h)[kKeysPerThread],
+        const bool (&live)[kKeysPerThread], unsigned (&v)[kKeysPerThread]) {
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; j++) {
+        const long long b = bin_in(g, h[j], t) - lo;
+        v[j] = live[j] && b >= 0 && b < len ? __ldg(piece + b) : kNoBin;
+    }
+}
+
+// gather_table for each table t < T (the template argument) whose bit is
+// set in `tables`, kNoBin for the others: every load of every key is
+// issued before the caller reads any, T * kKeysPerThread in flight, and
+// no bin is computed for a table the mask leaves out.
+template <int T>
+__device__ __forceinline__ void gather_tables(
+        const unsigned* __restrict__ piece, const Geometry& g,
+        unsigned tables, long long lo, long long len,
+        const u64 (&h)[kKeysPerThread], const bool (&live)[kKeysPerThread],
+        unsigned (&v)[T][kKeysPerThread]) {
+#pragma unroll
+    for (int t = 0; t < T; t++) {
+        if ((tables >> t) & 1u) {
+            gather_table(piece, g, t, lo, len, h, live, v[t]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < kKeysPerThread; j++) v[t][j] = kNoBin;
+        }
+    }
+}

@@ -30,16 +30,6 @@ namespace {
 
 constexpr int kFilterThreads = 256;
 
-static int sm_count() {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return sms;
-}
-
 // TM < 0: no mask; TM = 0: a mask of any T (the loop over tables);
 // 1 <= TM <= 4: a mask of TM tables.
 template <bool kBand, int TM>

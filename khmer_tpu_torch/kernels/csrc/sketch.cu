@@ -721,10 +721,8 @@ __global__ void sketch_finish_kernel(const unsigned* __restrict__ table,
 
 // ---- K3 --------------------------------------------------------------------
 
-constexpr int kGetThreads = 256;
-
 template <int TM>
-__global__ void __launch_bounds__(kGetThreads)
+__global__ void __launch_bounds__(kThreads)
 sketch_get_kernel(const unsigned* __restrict__ table,
                   const u64* __restrict__ hashes, long long n, int T,
                   const long long* __restrict__ sizes,
@@ -740,17 +738,7 @@ sketch_get_kernel(const unsigned* __restrict__ table,
     const bool whole = i + kKeysPerThread <= n;
     u64 h[kKeysPerThread];
     bool live[kKeysPerThread];
-    if (whole && vec) {
-        const ulonglong2 a = __ldcs((const ulonglong2*)(hashes + i));
-        const ulonglong2 b = __ldcs((const ulonglong2*)(hashes + i + 2));
-        h[0] = a.x, h[1] = a.y, h[2] = b.x, h[3] = b.y;
-    } else {
-#pragma unroll
-        for (int j = 0; j < kKeysPerThread; j++)
-            h[j] = i + j < n ? __ldcs(hashes + i + j) : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; j++) live[j] = i + j < n;
+    load_keys(hashes, i, n, vec, h, live);
     unsigned c[kKeysPerThread];
     min_over_tables<TM>(table, g, T, h, live, c);
     if (whole) {
@@ -769,26 +757,54 @@ sketch_get_kernel(const unsigned* __restrict__ table,
 // out[t * n + i] = table[bin of hashes[i] in table t]: K3's gather without
 // the min over tables, for the sharded query, which sums each table's bins
 // over the mesh before the cap and the min (khmer_tpu/parallel/
-// sharded.py:make_sharded_query, :114-119).  A thread a key, its T loads
-// issued before any store.
-__global__ void __launch_bounds__(kGetThreads)
+// sharded.py:make_sharded_query, :114-119).  K3's shape: a thread takes
+// kKeysPerThread keys (two 16-byte streaming loads), issues all T * 4 of
+// their table loads before any store (common.cuh's gather_tables, T <= 4 a
+// template argument; TM = 0 is the loop over a runtime T, a table's four
+// loads at a time), and writes each table's four values as one 16-byte
+// streaming store when the rows are 16-byte aligned (n % 4 == 0), so that
+// the key and output streams do not evict table sectors from L2.
+template <int TM>
+__global__ void __launch_bounds__(kThreads)
 sketch_get_tables_kernel(const unsigned* __restrict__ table,
                          const u64* __restrict__ hashes, long long n, int T,
                          const long long* __restrict__ sizes,
                          const long long* __restrict__ offs,
-                         const u64* __restrict__ recips,
-                         unsigned* __restrict__ out) {
+                         const u64* __restrict__ recips, bool vec_in,
+                         bool vec_out, unsigned* __restrict__ out) {
     __shared__ Geometry g;
     load_geometry(g, T, sizes, offs, recips);
     __syncthreads();
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long i =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kKeysPerThread;
     if (i >= n) return;
-    const u64 h = __ldcs(hashes + i);
-    unsigned v[kMaxTables];
-#pragma unroll 4
-    for (int t = 0; t < T; t++) v[t] = __ldg(table + bin_in(g, h, t));
-#pragma unroll 4
-    for (int t = 0; t < T; t++) __stcs(out + (long long)t * n + i, v[t]);
+    u64 h[kKeysPerThread];
+    bool live[kKeysPerThread];
+    load_keys(hashes, i, n, vec_in, h, live);
+    const bool vec = vec_out && i + kKeysPerThread <= n;
+    auto store = [&](int t, const unsigned (&v)[kKeysPerThread]) {
+        unsigned* row = out + (long long)t * n + i;
+        if (vec) {
+            __stcs((uint4*)row, make_uint4(v[0], v[1], v[2], v[3]));
+        } else {
+#pragma unroll
+            for (int j = 0; j < kKeysPerThread; j++)
+                if (live[j]) __stcs(row + j, v[j]);
+        }
+    };
+    if constexpr (TM > 0) {
+        unsigned v[TM][kKeysPerThread];
+        gather_tables<TM>(table, g, (1u << TM) - 1u, 0, kAllBins, h, live,
+                          v);
+#pragma unroll
+        for (int t = 0; t < TM; t++) store(t, v[t]);
+    } else {
+        for (int t = 0; t < T; t++) {
+            unsigned v[kKeysPerThread];
+            gather_table(table, g, t, 0, kAllBins, h, live, v);
+            store(t, v);
+        }
+    }
 }
 
 // ---- bin_scatter_add -------------------------------------------------------
@@ -824,16 +840,6 @@ __global__ void bin_scatter_add_kernel(unsigned* __restrict__ table,
 }
 
 // ---- C entry points --------------------------------------------------------
-
-static int sm_count() {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return sms;
-}
 
 // The dynamic shared memory of passes 3 and 6 (at most kMaxBuckets).
 constexpr int bucket_smem(long long buckets) {
@@ -959,10 +965,8 @@ extern "C" int khmer_sketch_get(const void* table, const void* hashes,
     if (n <= 0) return 0;
     // a thread for every four keys, in blocks small enough that a short
     // batch still reaches every SM
-    const int sms = sm_count();
     const long long quads = (n + kKeysPerThread - 1) / kKeysPerThread;
-    int threads = kGetThreads;
-    while (threads > 32 && quads < (long long)threads * sms) threads /= 2;
+    const int threads = quad_threads(quads, sm_count());
     const long long blocks = (quads + threads - 1) / threads;
     const bool vec = (uintptr_t)hashes % 16 == 0;
     switch (T) {
@@ -979,20 +983,50 @@ extern "C" int khmer_sketch_get(const void* table, const void* hashes,
     }
 }
 
-// out: u32 [T, n]
+template <int TM>
+static int get_tables_launch(const void* table, const void* hashes,
+                             long long n, int T, const void* sizes,
+                             const void* offs, const void* recips,
+                             bool vec_in, bool vec_out, void* out,
+                             long long blocks, int threads, void* stream) {
+    sketch_get_tables_kernel<TM><<<(unsigned)blocks, threads, 0,
+                                   (cudaStream_t)stream>>>(
+        (const unsigned*)table, (const u64*)hashes, n, T,
+        (const long long*)sizes, (const long long*)offs, (const u64*)recips,
+        vec_in, vec_out, (unsigned*)out);
+    return (int)cudaGetLastError();
+}
+
+// out: u32 [T, n]; hashes may be a view, and take the vector loads only
+// when 16-byte aligned; the rows take vector stores when n % 4 == 0.
 extern "C" int khmer_sketch_get_tables(const void* table, const void* hashes,
                                        long long n, int T, const void* sizes,
                                        const void* offs, const void* recips,
                                        void* out, void* stream) {
     if (T < 1 || T > kMaxTables) return (int)cudaErrorInvalidValue;
     if (n <= 0) return 0;
-    sketch_get_tables_kernel<<<(unsigned)((n + kGetThreads - 1) /
-                                          kGetThreads),
-                               kGetThreads, 0, (cudaStream_t)stream>>>(
-        (const unsigned*)table, (const u64*)hashes, n, T,
-        (const long long*)sizes, (const long long*)offs, (const u64*)recips,
-        (unsigned*)out);
-    return (int)cudaGetLastError();
+    const long long quads = (n + kKeysPerThread - 1) / kKeysPerThread;
+    const int threads = quad_threads(quads, sm_count());
+    const long long blocks = (quads + threads - 1) / threads;
+    const bool vec_in = (uintptr_t)hashes % 16 == 0;
+    const bool vec_out = n % kKeysPerThread == 0 && (uintptr_t)out % 16 == 0;
+    switch (T) {
+    case 1: return get_tables_launch<1>(table, hashes, n, T, sizes, offs,
+                                        recips, vec_in, vec_out, out, blocks,
+                                        threads, stream);
+    case 2: return get_tables_launch<2>(table, hashes, n, T, sizes, offs,
+                                        recips, vec_in, vec_out, out, blocks,
+                                        threads, stream);
+    case 3: return get_tables_launch<3>(table, hashes, n, T, sizes, offs,
+                                        recips, vec_in, vec_out, out, blocks,
+                                        threads, stream);
+    case 4: return get_tables_launch<4>(table, hashes, n, T, sizes, offs,
+                                        recips, vec_in, vec_out, out, blocks,
+                                        threads, stream);
+    default: return get_tables_launch<0>(table, hashes, n, T, sizes, offs,
+                                         recips, vec_in, vec_out, out, blocks,
+                                         threads, stream);
+    }
 }
 
 extern "C" int khmer_bin_scatter_add(void* table, long long nbins,

@@ -29,10 +29,13 @@ the flags of the lanes that won a bin that was empty, K19 adds the
 totals, and the mesh's sum of the flags gives each lane's was-new flag.
 A bin belongs to one piece, so no claim crosses the mesh.
 
-The whole-table consume goes through K2 a chunk
-(khmer_tpu_torch/hashtable.py), which is exact without a ledger; the
-counter is the consume of a bin-sharded table, where a key's bins lie on
-several pieces and each distinct key then reaches every piece once.
+The counter is the bulk consume of every table of bins, whole or
+bin-sharded (khmer_tpu_torch/hashtable.py:_consume_deferred), as in
+khmer_tpu: its bigcount candidates are the keys whose table-0 bin before
+the flush plus their own total passes 255, which K2 a chunk (the rule of
+khmer_tpu's sketch_update) would not give.  On a bin-sharded table a
+key's bins lie on several pieces, and each distinct key reaches every
+piece once.
 khmer_tpu's TPU workarounds are not ported: the asynchronous fetches
 (_fetch_async, _FETCH_POOL), the shape buckets and the donation copies.
 """

@@ -1,11 +1,11 @@
 """Storage layer: device-resident sketches with khmer Storage semantics.
 
 Port of khmer_tpu/storage.py:42-353 (ByteStorage, NibbleStorage and
-BitStorage).  Each
-storage is ONE flat uint32 working array on its device, updated by
-kernel K2 per batch; each kind's saturation cap is applied at read
-time, which equals the reference's saturating increments (see
-ops/sketch_ops.py).
+BitStorage).  Each storage is ONE flat uint32 working array on its
+device, updated by kernel K2 per batch (add_lanes) or by the deferred
+counter's flush (ops/deferred.py, the bulk consumes); each kind's
+saturation cap is applied at read time, which equals the reference's
+saturating increments (see ops/sketch_ops.py).
 
 bigcount: counts past 255 need no side structure at runtime (the
 uint32 total is simply capped at 65535 on reads).  The OXLI file

@@ -27,6 +27,7 @@ from khmer_tpu_torch.scripts import (filter_abund_single,
 from .khmer_tst_utils import runscript
 from .test_torch_filters import write_pairs
 from .test_torch_rows import _with_errors
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 SIZE = 20011
 N_TABLES = 4

@@ -1958,19 +1958,39 @@ def test_claim_news(dev, case, sizes, virgin):
     assert out["card"][1] == out["plain"][1]
 
 
-@pytest.mark.parametrize("n", [0, 1, 255, 257, 100003])
-@pytest.mark.parametrize("sizes", [(1009,), (1009, 1013, 1019), (16,) * 32])
-def test_sketch_get_tables(dev, sizes, n):
-    rng = np.random.default_rng(n)
+# table counts of K3t's and K20's edges: the four template widths, the
+# first runtime one and khmer's most
+GATHER_TABLES = [1, 2, 3, 4, 5, 32]
+
+
+def _gather_keys(rng, n, edges=()):
+    """n uint64 keys: `edges` first, then 2**64 - 1, then random ones."""
+    keys = list(edges) + [2 ** 64 - 1] + \
+        rng.integers(0, 2 ** 64, max(n, 1), dtype=np.uint64).tolist()
+    return np.array(keys[:n], np.uint64)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 257, 100003, 100004])
+@pytest.mark.parametrize("T", GATHER_TABLES)
+def test_sketch_get_tables(dev, T, n, offset):
+    """K3t equals its plain version bit for bit with one launch a call: a
+    ragged last quad of keys (n % 4 != 0; no 16-byte stores), the hashes
+    as a view 8 bytes into their buffer (offset 1: no 16-byte loads), 2**64
+    - 1 among them, and T from 1 to 32 (the template widths and the
+    loop)."""
+    rng = np.random.default_rng(n * 64 + T * 2 + offset)
+    sizes = tuple(get_n_primes_near_x(T, 1000))
     spec = SketchSpec("byte", sizes)
     table = _table(rng, sizes, 2 ** 32)
-    h = _u64.as_tensor(_hashes(rng, n, max(n, 1)), "cpu")
-    got = kernels.sketch_get_tables(table.to(dev), h.to(dev),
-                                    *[g.to(dev) for g in
-                                      spec.geometry("cpu")])
-    want = plain.sketch_get_tables(table, h, *spec.geometry("cpu"))
-    assert got.shape == (len(sizes), n)
+    h = _u64.as_tensor(_gather_keys(rng, n + offset), "cpu")
+    kernels.reset_launches()
+    got = kernels.sketch_get_tables(table.to(dev), h.to(dev)[offset:],
+                                    *spec.geometry(dev))
+    want = plain.sketch_get_tables(table, h[offset:], *spec.geometry("cpu"))
+    assert got.shape == (T, n)
     assert torch.equal(got.cpu(), want)
+    assert kernels.LAUNCHES["sketch_get_tables"] == (1 if n else 0)
 
 
 @pytest.mark.parametrize("case", ["one_node", "padding", "star", "path",
@@ -2283,3 +2303,44 @@ def test_binshard_consume_on_card(dev, tmp_path, which):
     assert a.consume_seqfile_and_tag(fa) == b.consume_seqfile_and_tag(fa)
     assert a.all_tags == b.all_tags
     assert np.array_equal(a.storage.raw_bytes(), b.storage.raw_bytes())
+
+
+def _k20_bounds(spec):
+    """Pieces of spec's bins and its spare bin that cut table 0 in its
+    middle, the last table 7 bins in, and the spare bin off (a piece that
+    holds no table's bin), with an empty piece at table 0's cut."""
+    mid = spec.bin_offsets[0] + spec.tablesizes[0] // 2
+    total = spec.total_bins + 1
+    cuts = sorted([0, mid, mid, spec.bin_offsets[-1] + 7, total - 1, total])
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1001, 4099])
+@pytest.mark.parametrize("T", GATHER_TABLES)
+def test_owned_get_edges(dev, T, n, offset):
+    """K20 equals its plain version bit for bit with one launch a call on
+    pieces that cut a table mid-range, hold several whole tables, hold no
+    table (the spare bin alone) or nothing, with keys whose bins are each
+    piece's first and last bin first, then 2**64 - 1; bins past 2**31
+    (the min is unsigned); ragged quads (n % 4 != 0) and the keys as a
+    view 8 bytes into their buffer (offset 1)."""
+    rng = np.random.default_rng(n * 64 + T * 2 + offset)
+    spec = SketchSpec("byte", tuple(get_n_primes_near_x(T, 1000)))
+    bounds = _k20_bounds(spec)
+    table = _table(rng, spec.tablesizes, 2 ** 32)
+    edges = []
+    for g in [b for lo, hi in bounds if hi > lo for b in (lo, hi - 1)]:
+        for p, off in zip(spec.tablesizes, spec.bin_offsets):
+            if off <= g < off + p:
+                edges.append((g - off) + p * int(rng.integers(1, 1 << 40)))
+    h = _u64.as_tensor(_gather_keys(rng, n + offset, edges), "cpu")
+    hd = h.to(dev)[offset:]
+    g_cpu, g_dev = spec.geometry("cpu"), spec.geometry(dev)
+    for lo, hi in bounds:
+        piece = table[lo:hi].clone()
+        kernels.reset_launches()
+        got = kernels.owned_get(hd, piece.to(dev), lo, *g_dev)
+        want = plain.owned_get(h[offset:], piece, lo, *g_cpu)
+        assert torch.equal(got.cpu(), want), (lo, hi)
+        assert kernels.LAUNCHES["owned_get"] == (1 if n else 0)

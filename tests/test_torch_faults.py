@@ -13,6 +13,13 @@ mask thresholds outside uint32 and load_storage's signature.
   65536 count what khmer_tpu counts.
 * io.oxli_format.load_storage(path) with khmer_tpu's one argument loads a
   .ct and a gzipped .ct as khmer_tpu's does.
+* The bulk consumes of a whole table (consume_seqfile, and
+  consume_seqfile_banding through the filters) take khmer_tpu's bigcount
+  candidates, its deferred counter's: on reads where one read repeats
+  past 255 and a k-mer seen once shares all its bins with that read's,
+  the saved .ct (bigcount section included) and n_unique equal
+  khmer_tpu's; consume_seqfile_and_tag, which both packages run by
+  sketch_update's rule, still gives khmer_tpu's bytes.
 
 Each case is held against khmer_tpu on the same generated file."""
 
@@ -31,6 +38,7 @@ import khmer_tpu_torch
 from khmer_tpu_torch.io import oxli_format
 from khmer_tpu_torch.scripts import unique_kmers
 from .khmer_tst_utils import runscript
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 K = 15
 
@@ -173,3 +181,44 @@ def test_load_storage_takes_one_argument(files, tmp_path, gz):
         oxli_format.load_storage(path, ("bit",), device="cpu")
     assert bytes(khmer_tpu_torch.Countgraph.load(path, device="cpu")
                  .storage.raw_bytes()) == bytes(got.raw_bytes())
+
+
+@pytest.fixture(scope="module")
+def repeated_read(tmp_path_factory):
+    """60 random 120-base reads, then the first of them 300 times more."""
+    path = str(tmp_path_factory.mktemp("torch_faults_bc") / "rep.fa")
+    rng = np.random.default_rng(1)
+    seqs = ["".join("ACGT"[c] for c in rng.integers(0, 4, 120))
+            for _ in range(60)]
+    seqs += [seqs[0]] * 300
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(">r%d\n%s\n" % (i, s))
+    return path
+
+
+BULK = {
+    "consume_seqfile": lambda t, f: t.consume_seqfile(f),
+    "banding": lambda t, f: t.consume_seqfile_banding(f, 1, 0),
+    "and_tag": lambda t, f: t.consume_seqfile_and_tag(f),
+}
+
+
+@pytest.mark.parametrize("call", list(BULK))
+def test_bulk_consume_bigcount_section(repeated_read, tmp_path, call):
+    """Countgraph(20, 4999, 3) with bigcount: the .ct bytes and n_unique
+    of each consume equal khmer_tpu's (16,015 bytes, 101 bigcount
+    entries, for the bulk consumes; 16,025 for the tagging one)."""
+    def run(mod, kw):
+        t = mod.Countgraph(20, 4999, 3, **kw)
+        t.set_use_bigcount(True)
+        ret = BULK[call](t, repeated_read)
+        path = str(tmp_path / "{}.ct".format(mod.__name__))
+        t.save(path)
+        with open(path, "rb") as f:
+            return ret, t.n_unique_kmers(), f.read()
+
+    want, got = _both(run)
+    assert got == want
+    assert want[1] == 5333
+    assert len(want[2]) == (16025 if call == "and_tag" else 16015)

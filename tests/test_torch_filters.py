@@ -19,6 +19,7 @@ from khmer_tpu_torch.scripts import (count_median, filter_abund,
 
 from .khmer_tst_utils import runscript
 from .test_torch_rows import _with_errors
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 BATCH = 64
 TABLE = ["-k", "20", "-N", "4", "-x", "20011"]

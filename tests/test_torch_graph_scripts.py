@@ -23,6 +23,7 @@ from khmer_tpu_torch.scripts import (annotate_partitions, extract_partitions,
                                      partition_graph)
 from .khmer_tst_utils import runscript
 from .test_torch_partition import write_metagenome
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 TABLE = ["-k", "20", "-N", "4", "-x", "20011"]
 CHAINS = {"default": [], "no-big-traverse": ["--no-big-traverse"],

@@ -27,6 +27,7 @@ from khmer_tpu_torch.scripts import unique_kmers
 
 from .khmer_tst_utils import runscript
 from .test_torch_countgraph import write_reads
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 K = 20
 RATES = {4: 0.26, 14: 0.01, 16: 0.005}  # p -> -e

@@ -43,6 +43,7 @@ from khmer_tpu_torch.scripts import (do_partition, filter_stoptags,
 from .khmer_tst_utils import runscript
 from .test_torch_partition import write_metagenome
 from .test_torch_traversal import write_lump
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 SIZE = 10007
 N_TABLES = 4

@@ -18,6 +18,7 @@ from khmer_tpu_torch import Countgraph, _u64
 from khmer_tpu_torch.primes import get_n_primes_near_x
 
 from . import khmer_tst_utils as tst
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 WORKER = os.path.join(os.path.dirname(__file__), "torch_mp_worker.py")
 

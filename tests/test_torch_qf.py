@@ -31,6 +31,7 @@ from khmer_tpu_torch.ops.hashing import hash_murmur3_scalar
 from khmer_tpu_torch.scripts import normalize_by_median, trim_low_abund
 
 from .test_torch_filters import write_pairs
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 
 def _random_seqs(n, length, seed=9):

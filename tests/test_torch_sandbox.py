@@ -27,10 +27,13 @@ import numpy as np
 import pytest
 
 import khmer_tpu
+import khmer_tpu.khmer_logger as jax_logger
 import khmer_tpu_torch
+from khmer_tpu_torch import khmer_logger
 from khmer_tpu_torch.sandbox import (assemble_on_the_go, correct_reads,
                                      sweep_reads)
 from .khmer_tst_utils import runscript
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 _RC = str.maketrans("ACGT", "TGCA")
 
@@ -132,6 +135,11 @@ def _both(tmp_path, name, module, argv, inputs, small=None):
     files) of khmer_tpu, the same of the port)."""
     got = []
     for side in ("jax", "port"):
+        # each script starts from the loggers' default, as from a shell: a
+        # script run with -q earlier in this process leaves its package's
+        # logger quiet, and the banner compared below would go
+        jax_logger.configure_logging(False)
+        khmer_logger.configure_logging(False)
         d = tmp_path / side
         d.mkdir()
         for p in inputs:

@@ -10,6 +10,7 @@ from khmer_tpu_torch.scripts import (abundance_dist, abundance_dist_single,
                                      load_into_counting)
 from .khmer_tst_utils import runscript
 from .test_torch_countgraph import write_reads
+from .torch_cwd import cwd_for_module, cwd_for_test  # noqa: F401
 
 TABLE_ARGS = ["-k", "20", "-N", "4", "-x", "1e6"]
 
